@@ -8,19 +8,26 @@ Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository
 beside this file; exits non-zero, and prints no result, otherwise.  Phases,
 each of which raises on failure:
 
-1. Build the grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, ``nvcc`` for
-   ``sm_90a``) and print the card's name and power limit.
+1. Build the grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
+   and ``csrc/gconv3x3_tc.cu``, tensor cores; one ``nvcc`` each for
+   ``sm_90a``, started together) and print the card's name and power
+   limit.
 2. Hold each kernel against its plain PyTorch version at NFNet-L0's three
    grouped-conv shapes (mini-batch 100): the forward conv, the input
    gradient (the forward kernel on the rotated weight) and the weight
-   gradient, in float32 and bfloat16; one double-backward HVP through the
-   autograd Functions; times of the kernel, the plain version and the
-   cuDNN call beside the card's bound.
+   gradient; the CUDA-core kernels in float32 and bfloat16, the
+   tensor-core kernels in bfloat16.  The tensor-core wgrad twice, for the
+   same bits.  Double-backward HVPs through the autograd Functions in
+   float32 (CUDA-core kernels) and bfloat16 (tensor-core kernels).  Times
+   of each kernel with a warm and a cold L2, of the plain version and of
+   the cuDNN call, beside the card's bound.
 3. The main path: ``Distiller.step_traj`` outer steps of NFNet-L0 at 224^2,
    nq=100, mb=100, syn_steps=8, bf16 inner compute, forward-HVP, kernels
-   on, dropout and DropPath active; launch counters read around it.
-4. One float32 outer step with the kernels against the same step on
-   ``F.conv2d`` (TF32 off), from the same seed and state.
+   on, dropout and DropPath active; launch counters read around it: every
+   grouped conv, dgrad and wgrad on the tensor-core kernels.
+4. One float32 outer step with the kernels (the CUDA-core route; counters
+   read around it) against the same step on ``F.conv2d`` (TF32 off), from
+   the same seed and state.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.
@@ -50,6 +57,18 @@ SITES = {(28, 128, 2): 3, (14, 384, 6): 11, (7, 384, 6): 5}
 BATCH = 100
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # x max|plain|; see below
 TPU_SRC = "multimodal_dataset_distillation_tpu/ops/pallas_gconv.py"
+L2_BYTES = 50e6      # H100 L2; the cold timings rotate through 3x this
+# the four kernels: LAUNCHES key -> (kind, route, source, TPU kernel line)
+KERNELS = {
+    "gconv3x3_fwd": ("fwd", "simt", "gconv3x3.cu", 176),
+    "gconv3x3_wgrad": ("wgrad", "simt", "gconv3x3.cu", 223),
+    "gconv3x3_fwd_tc": ("fwd", "tc", "gconv3x3_tc.cu", 176),
+    "gconv3x3_wgrad_tc": ("wgrad", "tc", "gconv3x3_tc.cu", 223),
+}
+# launches per outer step of the headline configuration: each grouped site
+# runs 8 forward-kernel and 4 wgrad-kernel calls per inner step
+MAIN_PATH_PER_STEP = {"gconv3x3_fwd_tc": 19 * 8 * 8,
+                      "gconv3x3_wgrad_tc": 19 * 4 * 8}
 
 
 def card_line() -> str:
@@ -59,19 +78,42 @@ def card_line() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
+def cuda_ms(fn, args, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn(*args)`` over ``iters`` back-to-back calls,
+    captured in one CUDA graph and timed with events around its replay, so
+    that the host's launch overhead (tens of us per wrapper call, more than
+    a small kernel takes) stays out of the number.  ``args`` is one tuple
+    of operands (warm: they stay in L2 between calls) or a list of copies
+    used in turn (cold: see :func:`cold_copies`)."""
+    sets = args if isinstance(args, list) else [args]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fn(*sets[i % len(sets)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
+
+
+def cold_copies(*ts: torch.Tensor) -> list:
+    """Copies of the operands, enough that a call's inputs were last read
+    more than 3 x the L2's size of other inputs ago: a cold L2 for each."""
+    per = sum(t.numel() * t.element_size() for t in ts)
+    n = max(2, math.ceil(3 * L2_BYTES / per))
+    return [tuple(t.clone() for t in ts) for _ in range(n)]
 
 
 def bound_ms(flops: float, nbytes: float, peak: float):
@@ -112,47 +154,71 @@ def check_kernels(gc):
         print(f"shape x=({BATCH},{h},{h},{c}) groups={groups} "
               f"({sites} sites per tower pass)", flush=True)
         row = {"shape": [BATCH, h, h, c], "groups": groups, "sites": sites}
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, route in ((torch.float32, "simt"), (torch.bfloat16, "simt"),
+                             (torch.bfloat16, "tc")):
             x, w, yb = x32.to(dtype), w32.to(dtype), yb32.to(dtype)
             xf, wf, ybf = x.float(), w.float(), yb.float()
-            tag = "f32" if dtype == torch.float32 else "bf16"
+            tc = route == "tc"
+            tag = f"{route}_{'f32' if dtype == torch.float32 else 'bf16'}"
+            print(f"  {route} kernels:", flush=True)
             row[f"fwd_err_{tag}"] = check(
-                "fwd", gc.gconv3x3_fwd(x, w, groups),
+                "fwd", gc.gconv3x3_fwd(x, w, groups, tc=tc),
                 gc.gconv3x3_ref(xf, wf, groups), dtype)
             xr = xf.clone().requires_grad_()
             (dx_plain,) = torch.autograd.grad(gc.gconv3x3_ref(xr, wf, groups),
                                               xr, ybf)
             row[f"dgrad_err_{tag}"] = check(
-                "dgrad", gc.gconv3x3_fwd(yb, gc.rot_swap(w, groups), groups),
-                dx_plain, dtype)
+                "dgrad", gc.gconv3x3_fwd(yb, gc.rot_swap(w, groups), groups,
+                                         tc=tc), dx_plain, dtype)
+            dw = gc.gconv3x3_wgrad(x, yb, groups, tc=tc)
             row[f"wgrad_err_{tag}"] = check(
-                "wgrad", gc.gconv3x3_wgrad(x, yb, groups),
-                gc.gconv3x3_wgrad_ref(xf, ybf, groups), dtype)
+                "wgrad", dw, gc.gconv3x3_wgrad_ref(xf, ybf, groups), dtype)
+            if tc and not torch.equal(dw, gc.gconv3x3_wgrad(x, yb, groups,
+                                                            tc=True)):
+                raise AssertionError("tensor-core wgrad differs on repeat")
         # times in bfloat16, the main path's dtype
         x, w, yb = x32.bfloat16(), w32.bfloat16(), yb32.bfloat16()
-        x_nchw = x.permute(0, 3, 1, 2)          # channels-last view, no copy
-        yb_nchw = yb.permute(0, 3, 1, 2)
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        fwd_in, wgrad_in = cold_copies(x, w), cold_copies(x, yb)
+        lib_in = {"fwd": ((x, w_oihw), cold_copies(x, w_oihw)),
+                  "wgrad": ((x, yb), wgrad_in)}
         flops = 2.0 * BATCH * h * h * c * 9 * cpg
-        fwd_bytes = (x.numel() * 2 + w.numel() * 2 + yb.numel() * 2)
-        row["fwd_ms"] = cuda_ms(lambda: gc.gconv3x3_fwd(x, w, groups))
-        row["fwd_plain_ms"] = cuda_ms(lambda: gc.gconv3x3_ref(x, w, groups))
-        row["fwd_library_ms"] = cuda_ms(lambda: F.conv2d(
-            x_nchw, w_oihw, padding=1, groups=groups))
-        row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(
-            flops, fwd_bytes, PEAK_BF16)
-        row["wgrad_ms"] = cuda_ms(lambda: gc.gconv3x3_wgrad(x, yb, groups))
-        row["wgrad_plain_ms"] = cuda_ms(
-            lambda: gc.gconv3x3_wgrad_ref(x, yb, groups))
-        row["wgrad_library_ms"] = cuda_ms(
-            lambda: torch.ops.aten.convolution_backward(
-                yb_nchw, x_nchw, w_oihw, None, [1, 1], [1, 1], [1, 1], False,
-                [0, 0], groups, [False, True, False]))
-        row["wgrad_bound_ms"], row["wgrad_bound_by"] = bound_ms(
-            flops, fwd_bytes, PEAK_BF16)
+        nbytes = x.numel() * 2 + w.numel() * 2 + yb.numel() * 2
+        bound = bound_ms(flops, nbytes, PEAK_BF16)
+        library = {
+            "fwd": lambda a, b: F.conv2d(a.permute(0, 3, 1, 2), b, padding=1,
+                                         groups=groups),
+            "wgrad": lambda a, b: torch.ops.aten.convolution_backward(
+                b.permute(0, 3, 1, 2), a.permute(0, 3, 1, 2), w_oihw, None,
+                [1, 1], [1, 1], [1, 1], False, [0, 0], groups,
+                [False, True, False]),
+        }
+        plain = {"fwd": lambda a, b: gc.gconv3x3_ref(a, b, groups),
+                 "wgrad": lambda a, b: gc.gconv3x3_wgrad_ref(a, b, groups)}
+        for kind, warm, cold in (("fwd", (x, w), fwd_in),
+                                 ("wgrad", (x, yb), wgrad_in)):
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound
+            row[f"{kind}_plain_ms"] = cuda_ms(plain[kind], warm)
+            row[f"{kind}_library_ms"] = cuda_ms(library[kind],
+                                                lib_in[kind][0])
+            row[f"{kind}_library_cold_ms"] = cuda_ms(library[kind],
+                                                     lib_in[kind][1])
+            raw = getattr(gc, f"gconv3x3_{kind}")
+            for route in ("simt", "tc"):
+                call = (lambda a, b, tc=(route == "tc"):
+                        raw(a, b, groups, tc=tc))
+                row[f"{kind}_{route}_ms"] = cuda_ms(call, warm)
+                row[f"{kind}_{route}_cold_ms"] = cuda_ms(call, cold)
+        del fwd_in, wgrad_in, lib_in
         print("  bf16 ms: " + ", ".join(
             f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_ms")),
             flush=True)
+        for kind in ("fwd", "wgrad"):
+            for route in ("simt", "tc"):
+                share = (row[f"{kind}_bound_ms"]
+                         / row[f"{kind}_{route}_cold_ms"])
+                print(f"  {kind} {route}: bound share (cold) {share:.3f}",
+                      flush=True)
         rows.append(row)
     return rows
 
@@ -160,8 +226,13 @@ def check_kernels(gc):
 def check_hvp(gc):
     """Double backward through GConv3x3 (its backward is GConv3x3 and
     GConv3x3Wgrad applies, so the HVP runs on the kernels) against autograd
-    through the plain version; float32, tolerance 1e-4 of the largest
-    plain value."""
+    through the plain version.  float32 on the CUDA-core kernels, tolerance
+    1e-4 of the largest plain value.  bfloat16 on the tensor-core kernels
+    against the plain version in bfloat16 on the same operands: both round
+    every intermediate (conv outputs, sin, cos, products) to bfloat16 at
+    the same places and differ only in the order of the float32 sums
+    inside each conv, so 2e-2 of the largest plain value (a few bfloat16
+    ulps, 2^-8 each, carried through two chained convs)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     groups, cpg = 2, 64
     x = torch.randn(2, 6, 6, groups * cpg, device="cuda", generator=gen)
@@ -169,20 +240,30 @@ def check_hvp(gc):
                     generator=gen) / 24.0
     vx, vw = torch.randn_like(x), torch.randn_like(w) / 24.0
 
-    def hvp(conv):
-        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+    def hvp(conv, dtype):
+        xx = x.to(dtype).requires_grad_()
+        ww = w.to(dtype).requires_grad_()
         gx, gw = torch.autograd.grad(torch.sin(conv(xx, ww, groups)).sum(),
                                      (xx, ww), create_graph=True)
-        return torch.autograd.grad((gx * vx).sum() + (gw * vw).sum(),
-                                   (xx, ww))
+        return torch.autograd.grad(
+            (gx * vx.to(dtype)).sum() + (gw * vw.to(dtype)).sum(), (xx, ww))
 
-    before = dict(gc.LAUNCHES)
-    got = hvp(gc.gconv3x3)
-    if gc.LAUNCHES["gconv3x3_wgrad"] == before["gconv3x3_wgrad"]:
-        raise AssertionError("the HVP did not reach the wgrad kernel")
-    want = hvp(gc.gconv3x3_ref)
-    for name, a, b in zip(("hvp_x", "hvp_w"), got, want):
-        check(name, a, b, torch.float32)
+    for dtype, keys in ((torch.float32, ("gconv3x3_fwd", "gconv3x3_wgrad")),
+                        (torch.bfloat16, ("gconv3x3_fwd_tc",
+                                          "gconv3x3_wgrad_tc"))):
+        before = dict(gc.LAUNCHES)
+        got = hvp(gc.gconv3x3, dtype)
+        for k in keys:
+            if gc.LAUNCHES[k] == before[k]:
+                raise AssertionError(f"the {dtype} HVP did not reach {k}")
+        want = hvp(gc.gconv3x3_ref, dtype)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        for name, a, b in zip(("hvp_x", "hvp_w"), got, want):
+            err, scale = max_err(a, b.float())
+            print(f"  {name:<6} {str(dtype)[6:]:<8} max_abs_err {err:.3e}  "
+                  f"max|plain| {scale:.3e}  tol {tol * scale:.3e}", flush=True)
+            if not err <= tol * scale:
+                raise AssertionError(f"{name} {dtype}: {err} > {tol} x {scale}")
 
 
 def main_cfg(Config, **kw):
@@ -253,8 +334,10 @@ def main_path(gc, cfg, steps: int = 3):
         if not bool(torch.isfinite(b).all()) or torch.equal(a, b):
             raise AssertionError(f"{name} did not move to finite values")
     for k, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"{k}: no launch on the main path")
+        want = MAIN_PATH_PER_STEP.get(k, 0) * (steps + 1)
+        if n != want:
+            raise AssertionError(f"{k}: {n} launches on the main path, "
+                                 f"expected {want}")
     out = {
         "outer_steps": steps + 1,
         "first_step_s": t1 - t0,
@@ -269,7 +352,7 @@ def main_path(gc, cfg, steps: int = 3):
     return out
 
 
-def compare_f32(cfg, mb: int = 25, syn_steps: int = 2):
+def compare_f32(gc, cfg, mb: int = 25, syn_steps: int = 2):
     """Phase 4: one float32 outer step with the kernels against the same
     step on F.conv2d, at full width and 224^2 (mini-batch and syn_steps
     cut so that two float32 second-order graphs fit).  Tolerance 1e-3 on
@@ -284,7 +367,11 @@ def compare_f32(cfg, mb: int = 25, syn_steps: int = 2):
                         inner_dtype="float32", pallas_gconv=gconv)
         d, traj_img, traj_txt, rng = make_distiller(c)
         st0 = d.state
+        gc.reset_launches()
         m = d.step_traj(traj_img, traj_txt, 0, d.sample_indices(rng))
+        torch.cuda.synchronize()
+        if gconv:
+            launches = dict(gc.LAUNCHES)
         st = d.state
         # first step: trace = g, update = -lr * g
         res[gconv] = {
@@ -295,7 +382,7 @@ def compare_f32(cfg, mb: int = 25, syn_steps: int = 2):
         del d, traj_img, traj_txt, st0, st, m
         torch.cuda.empty_cache()
     a, b = res[True], res[False]
-    out = {"mini_batch": mb, "syn_steps": syn_steps,
+    out = {"mini_batch": mb, "syn_steps": syn_steps, "launches": launches,
            "loss_kernel": a["loss"], "loss_plain": b["loss"],
            "loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"])}
     if not out["loss_rel_err"] <= 1e-3:
@@ -307,42 +394,49 @@ def compare_f32(cfg, mb: int = 25, syn_steps: int = 2):
         if not (ref.norm() > 0 and rel <= 1e-2):
             raise AssertionError(f"f32 meta-gradient {k} differs: {out}")
     print("f32 kernels vs F.conv2d: " + json.dumps(out), flush=True)
+    for k in ("gconv3x3_fwd", "gconv3x3_wgrad"):
+        if launches[k] == 0:
+            raise AssertionError(f"{k}: no launch on the float32 path")
     return out
 
 
 def kernel_entries(rows, launches):
+    """One entry per kernel; times bf16, summed over one tower pass (19
+    sites, mb=100).  ``launches`` of the tensor-core kernels are phase 3's
+    (the bf16 main path), of the CUDA-core ones phase 4's (float32)."""
     def total(key):
         return sum(r["sites"] * r[key] for r in rows)
 
     entries = []
-    for name, kind, line in (("gconv3x3_fwd", "fwd", 176),
-                             ("gconv3x3_wgrad", "wgrad", 223)):
-        errs = [r[f"{kind}_err_bf16"] for r in rows]
-        if kind == "fwd":
-            errs += [r["dgrad_err_bf16"] for r in rows]
-        bound = total(f"{kind}_bound_ms")
+    for name, (kind, route, src, line) in KERNELS.items():
+        tags = (f"{route}_bf16",)
+        errs = [r[f"{k}_err_{t}"] for r in rows for t in tags
+                for k in ((kind, "dgrad") if kind == "fwd" else (kind,))]
+        bound, cold = total(f"{kind}_bound_ms"), total(f"{kind}_{route}_cold_ms")
         entries.append({
             "name": name, "route": "cuda",
-            "source": f"{PKG}/csrc/gconv3x3.cu",
+            "source": f"{PKG}/csrc/{src}",
             "replaces": f"{TPU_SRC}:{line}",
             "launches": launches[name],
             "max_abs_err": max(errs),
-            # times: bf16, summed over one tower pass (19 sites, mb=100)
-            "ms": total(f"{kind}_ms"), "plain_ms": total(f"{kind}_plain_ms"),
-            "bound_ms": bound,
+            "ms": total(f"{kind}_{route}_ms"), "ms_cold": cold,
+            "plain_ms": total(f"{kind}_plain_ms"),
+            "bound_ms": bound, "bound_share_cold": bound / cold,
             "bound_by": max(rows, key=lambda r: r[f"{kind}_bound_ms"])[
                 f"{kind}_bound_by"],
             "library_ms": total(f"{kind}_library_ms"),
+            "library_cold_ms": total(f"{kind}_library_cold_ms"),
             "per_shape": [{k: r[k] for k in (
-                "shape", "groups", "sites", f"{kind}_ms", f"{kind}_plain_ms",
-                f"{kind}_library_ms", f"{kind}_bound_ms",
-                f"{kind}_err_f32", f"{kind}_err_bf16")} for r in rows],
+                "shape", "groups", "sites", f"{kind}_{route}_ms",
+                f"{kind}_{route}_cold_ms", f"{kind}_plain_ms",
+                f"{kind}_library_ms", f"{kind}_library_cold_ms",
+                f"{kind}_bound_ms")} for r in rows],
         })
     return entries
 
 
 def main() -> int:
-    if not (HERE / PKG / "csrc" / "gconv3x3.cu").is_file():
+    if not (HERE / PKG / "csrc" / "gconv3x3_tc.cu").is_file():
         print(f"chip_smoke: {PKG}/ is not beside this script", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -356,19 +450,26 @@ def main() -> int:
           f"{sys.version.split()[0]}", flush=True)
     print(f"card: {card_line()}", flush=True)
     t0 = time.perf_counter()
-    gc.build(verbose=True)
+    libs = gc.build(verbose=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for h, _, _ in SITES:   # the planner's shared-memory sizes are the .cu's
+        for i, kind in enumerate(("fwd", "wgrad")):
+            if libs.tc.mdd_gconv3x3_tc_smem(i, h) != gc.tc_smem_bytes(kind, h):
+                raise AssertionError(f"tc_smem_bytes({kind!r}, {h}) differs "
+                                     f"from gconv3x3_tc.cu")
 
     rows = check_kernels(gc)
+    torch.cuda.empty_cache()
     check_hvp(gc)
     torch.backends.cudnn.allow_tf32 = True   # the library defaults again
     cfg = main_cfg(Config)
     path = main_path(gc, cfg)
     torch.cuda.empty_cache()
-    compare_f32(cfg)
+    f32 = compare_f32(gc, cfg)
 
-    print(json.dumps({"kernels": kernel_entries(rows, path["launches"])}),
-          flush=True)
+    launches = {**f32["launches"], **{k: path["launches"][k]
+                                      for k in MAIN_PATH_PER_STEP}}
+    print(json.dumps({"kernels": kernel_entries(rows, launches)}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

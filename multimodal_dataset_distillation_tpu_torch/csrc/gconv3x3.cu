@@ -11,13 +11,19 @@
 //   * _wgrad_kernel (the pallas_call in _pallas_wgrad)
 //       -> gconv3x3_wgrad_partial_kernel + gconv3x3_wgrad_reduce_kernel.
 //
-// What bounds it on the card.  At NFNet-L0's shapes (64 channels per group)
-// each output element costs 2 * 9 * 64 = 1152 FLOP, about 288 FLOP per byte
-// of bf16 activation moved: right at the H100's ridge (~295), so on tensor
-// cores the FLOPs and the bytes would both set a bound of ~10 us per site.
-// This first version computes on the CUDA cores (float32 FMA, 67 TFLOP/s
-// peak), so it is bound by operations, far above that tensor-core bound.
-// The wgmma/TMA redesign is queued in ROADMAP.md.
+// Which calls reach these kernels.  ops/gconv.py sends bfloat16 with 64
+// input and 64 output channels per group (every grouped site of NFNet-L0,
+// so the whole bf16 main path) to the tensor-core kernels of
+// gconv3x3_tc.cu.  These CUDA-core kernels take everything else: float32
+// (the tensor cores' float32 route is TF32, too coarse for the float32
+// checks) and other group widths.
+//
+// What bounds it on the card.  At 64 channels per group each output
+// element costs 2 * 9 * 64 = 1152 FLOP, about 288 FLOP per byte of bf16
+// activation moved: right at the H100's ridge (~295).  These kernels
+// compute on the CUDA cores (float32 FMA, 67 TFLOP/s peak), so they are
+// bound by operations, 35-85x above the tensor-core bound, and each input
+// pixel is read from device memory once per tap.
 //
 // Design.
 //   * Implicit GEMM, one group per block: rows are output pixels (forward)

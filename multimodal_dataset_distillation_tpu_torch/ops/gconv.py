@@ -2,14 +2,23 @@
 autograd wiring.
 
 Counterpart of ``multimodal_dataset_distillation_tpu/ops/pallas_gconv.py``.
-The two TPU kernels there (``_spatial_kernel`` and ``_wgrad_kernel``) are
-``csrc/gconv3x3.cu`` here, built with ``nvcc`` for ``sm_90a`` into
-``build/kernels/libgconv.so`` at first use and called through ``ctypes``.
+The two TPU kernels there (``_spatial_kernel`` and ``_wgrad_kernel``) have
+two CUDA routes here, each built with ``nvcc`` for ``sm_90a`` into
+``build/kernels/`` at first use (both sources at once) and called through
+``ctypes``:
+
+* ``csrc/gconv3x3_tc.cu``: tensor-core kernels (``wgmma`` with A from
+  ldmatrix on halo rows, cp.async halo tiles) for bfloat16 with 64 input
+  and 64 output channels per group, every grouped site of NFNet-L0;
+* ``csrc/gconv3x3.cu``: CUDA-core float32-FMA kernels for everything else
+  (float32, other group widths).
+
+:func:`use_tc` is the rule between them, by dtype and shape alone.
 
 Public layout is the JAX one: NHWC activations x HWIO weights.
 
 * :func:`gconv3x3_fwd` / :func:`gconv3x3_wgrad` are the raw wrappers.  On a
-  CUDA tensor they launch the kernel (or raise); on a CPU tensor they run
+  CUDA tensor they launch a kernel (or raise); on a CPU tensor they run
   the plain version, :func:`gconv3x3_ref` / :func:`gconv3x3_wgrad_ref`.
 * :class:`GConv3x3` and :class:`GConv3x3Wgrad` are the autograd Functions.
   Each backward is built only from ``.apply`` calls of the two, as the
@@ -23,30 +32,50 @@ Public layout is the JAX one: NHWC activations x HWIO weights.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "gconv3x3.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_LIB_PATH = _BUILD_DIR / "libgconv.so"
+_SOURCES = {"simt": (_CSRC / "gconv3x3.cu", _BUILD_DIR / "libgconv.so"),
+            "tc": (_CSRC / "gconv3x3_tc.cu", _BUILD_DIR / "libgconv_tc.so")}
 
-#: kernel launches per wrapper, counted where the wrapper launches
-LAUNCHES = {"gconv3x3_fwd": 0, "gconv3x3_wgrad": 0}
+#: kernel launches per wrapper route, counted where the wrapper launches:
+#: ``gconv3x3_fwd``/``gconv3x3_wgrad`` are the CUDA-core kernels,
+#: ``*_tc`` the tensor-core ones
+LAUNCHES = {"gconv3x3_fwd": 0, "gconv3x3_wgrad": 0,
+            "gconv3x3_fwd_tc": 0, "gconv3x3_wgrad_tc": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132            # H100 SXM streaming multiprocessors
-_WGRAD_ROWS = 128     # kTileM of the .cu file
+_WGRAD_ROWS = 128     # kTileM of gconv3x3.cu
 _WGRAD_COLS = 64      # kTileN
 _WGRAD_SLICE = 16     # kTileK
-_lib: Optional[ctypes.CDLL] = None
+# gconv3x3_tc.cu
+TC_WIDTH = 64         # channels per group, in and out
+TC_TILE = 128         # pixels per tile
+_TC_ROW = 2 * TC_WIDTH            # bytes of one pixel's group row
+_SMEM_BLOCK_MAX = 232_448         # dynamic shared memory one block may use
+_SMEM_SM = 233_472                # shared memory of one SM (228 KB)
+_SMEM_RESERVED = 1_024            # reserved by the runtime per block
+_FWD_TC_BLOCKS_PER_SM = 2         # __launch_bounds__ of gconv3x3_fwd_tc
+
+
+class _Libs(NamedTuple):
+    simt: ctypes.CDLL
+    tc: ctypes.CDLL
+
+
+_libs: Optional[_Libs] = None
 
 
 def reset_launches() -> None:
@@ -54,42 +83,114 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile ``csrc/gconv3x3.cu`` (when the library is missing or older
-    than the source) and load it.  ``verbose`` adds ``-Xptxas -v`` and
-    prints nvcc's report (registers, shared memory, spills)."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    stale = (not _LIB_PATH.exists()
-             or _LIB_PATH.stat().st_mtime < _SRC.stat().st_mtime)
-    if stale or verbose:
-        nvcc = shutil.which("nvcc") or os.path.join(
-            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-o", tmp, str(_SRC)]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+def _nvcc_cmd(src: Path, out: str, verbose: bool) -> list:
+    nvcc = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", out, str(src)]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    return cmd
+
+
+def build(verbose: bool = False) -> _Libs:
+    """Compile the kernel sources (those whose library is missing or older
+    than the source; one ``nvcc`` each, all started together) and load
+    them.  ``verbose`` rebuilds and prints nvcc's report (registers, shared
+    memory, spills)."""
+    global _libs
+    if _libs is not None:
+        return _libs
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, (src, lib) in _SOURCES.items():
+        stale = (not lib.exists()
+                 or lib.stat().st_mtime < src.stat().st_mtime)
+        if verbose or stale:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+            os.close(fd)
+            jobs[name] = (tmp, subprocess.Popen(
+                _nvcc_cmd(src, tmp, verbose), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in jobs.items():
+        out, _ = proc.communicate()
         if proc.returncode:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
+            failed.append(f"nvcc {name} failed ({proc.returncode}):\n{out}")
+            continue
         if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, _LIB_PATH)  # atomic: a concurrent loader sees old or new
-    lib = ctypes.CDLL(str(_LIB_PATH))
+            print(f"nvcc {_SOURCES[name][0].name}:\n{out}", flush=True)
+        os.replace(tmp, _SOURCES[name][1])  # atomic: old or new, never half
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    simt = ctypes.CDLL(str(_SOURCES["simt"][1]))
+    tc = ctypes.CDLL(str(_SOURCES["tc"][1]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mdd_gconv3x3_fwd.argtypes = [p, p, p] + [i] * 7 + [p]
-    lib.mdd_gconv3x3_fwd.restype = i
-    lib.mdd_gconv3x3_wgrad.argtypes = [p, p, p, p] + [i] * 9 + [p]
-    lib.mdd_gconv3x3_wgrad.restype = i
-    _lib = lib
-    return lib
+    simt.mdd_gconv3x3_fwd.argtypes = [p, p, p] + [i] * 7 + [p]
+    simt.mdd_gconv3x3_wgrad.argtypes = [p, p, p, p] + [i] * 9 + [p]
+    tc.mdd_gconv3x3_fwd_tc.argtypes = [p, p, p] + [i] * 5 + [p]
+    tc.mdd_gconv3x3_wgrad_tc.argtypes = [p, p, p, p] + [i] * 6 + [p]
+    tc.mdd_gconv3x3_tc_smem.argtypes = [i, i]
+    for fn in (simt.mdd_gconv3x3_fwd, simt.mdd_gconv3x3_wgrad,
+               tc.mdd_gconv3x3_fwd_tc, tc.mdd_gconv3x3_wgrad_tc,
+               tc.mdd_gconv3x3_tc_smem):
+        fn.restype = i
+    _libs = _Libs(simt, tc)
+    return _libs
+
+
+# ---------------------------------------------------------------------------
+# route and grid plans (pure Python: the CPU tests hold them)
+# ---------------------------------------------------------------------------
+
+def tc_smem_bytes(kind: str, width: int) -> int:
+    """Dynamic shared memory of a tensor-core kernel at image width
+    ``width``: ``fwd_smem_bytes``/``wgrad_smem_bytes`` of gconv3x3_tc.cu."""
+    halo = TC_TILE + 2 * width + 2
+    if kind == "fwd":   # align slack, weights, 2 halos, zero row
+        return 1024 + 9 * TC_WIDTH * _TC_ROW + 2 * halo * _TC_ROW + _TC_ROW
+    if kind == "wgrad":  # align slack, 2 x (ybar tile + halo), 2 masks, zero row
+        return 1024 + 2 * (TC_TILE + halo) * _TC_ROW + 2 * TC_TILE * 2 + _TC_ROW
+    raise ValueError(f"unknown kernel kind {kind!r}")
+
+
+def use_tc(kind: str, dtype: torch.dtype, cpg: int, opg: int,
+           width: int) -> bool:
+    """The dispatch rule: bfloat16 with 64 input and 64 output channels per
+    group goes to the tensor-core kernel (``kind`` "fwd" or "wgrad"),
+    unless the image is so wide that its halo tiles exceed a block's shared
+    memory; everything else to the CUDA-core kernel.  A choice by dtype and
+    shape: the wrappers catch no failure of either route."""
+    return (dtype == torch.bfloat16 and cpg == TC_WIDTH and opg == TC_WIDTH
+            and tc_smem_bytes(kind, width) <= _SMEM_BLOCK_MAX)
+
+
+def fwd_tc_blocks(m: int, groups: int, width: int, sms: int = _SMS) -> int:
+    """Persistent blocks per group of the tensor-core forward.  Block b of
+    a group walks pixel tiles b, b + blocks, b + 2 * blocks, ...; as many
+    blocks as fit on the card at once, evened out so every block walks the
+    same number of tiles (or one fewer)."""
+    tiles = math.ceil(m / TC_TILE)
+    per_sm = min(_FWD_TC_BLOCKS_PER_SM, _SMEM_SM // (
+        tc_smem_bytes("fwd", width) + _SMEM_RESERVED))
+    cap = max(1, sms * max(per_sm, 1) // groups)
+    rounds = math.ceil(tiles / cap)
+    return max(1, math.ceil(tiles / rounds))
+
+
+def wgrad_tc_splits(m: int, groups: int, sms: int = _SMS) -> tuple:
+    """(splits, tiles per split) of the tensor-core wgrad: about one block
+    per SM (splits x groups), each summing a contiguous run of 128-pixel
+    tiles; split s covers tiles [s * per, (s + 1) * per)."""
+    tiles = math.ceil(m / TC_TILE)
+    per = math.ceil(tiles / max(1, min(tiles, sms // groups)))
+    return math.ceil(tiles / per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -155,9 +256,35 @@ def _cuda_check(name: str, *ts: torch.Tensor) -> int:
     return _DTYPE_CODE[ts[0].dtype]
 
 
-def gconv3x3_fwd(x: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:
+def _route(name: str, kind: str, tc: Optional[bool], dtype: torch.dtype,
+           cpg: int, opg: int, width: int, *ts: torch.Tensor) -> bool:
+    """``tc`` None applies :func:`use_tc`; True demands the tensor-core
+    kernel (and raises where it does not apply), False the CUDA-core one."""
+    fits = use_tc(kind, dtype, cpg, opg, width)
+    if tc is None:
+        tc = fits
+    elif tc and not fits:
+        raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 with "
+                         f"{TC_WIDTH} channels per group in and out and "
+                         f"width <= its shared memory; got {dtype}, "
+                         f"{cpg}->{opg}, width {width}")
+    if tc and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: the tensor-core kernel needs 16-byte "
+                         f"aligned operands")
+    return tc
+
+
+def _launched(name: str, rc: int) -> None:
+    if rc:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def gconv3x3_fwd(x: torch.Tensor, w: torch.Tensor, groups: int,
+                 tc: Optional[bool] = None) -> torch.Tensor:
     """y (N,H,W,F) = grouped 3x3 stride-1 SAME conv of x (N,H,W,C) with
-    w (3,3,C/groups,F)."""
+    w (3,3,C/groups,F).  On the card ``tc`` picks the kernel (see
+    :func:`_route`); the CPU ignores it."""
     _check("gconv3x3_fwd", x, w)
     n, h, wd, c = x.shape
     kh, kw, cpg, feats = w.shape
@@ -170,21 +297,27 @@ def gconv3x3_fwd(x: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:
     y = torch.empty((n, h, wd, feats), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    lib = build()
+    opg = feats // groups
+    tc = _route("gconv3x3_fwd", "fwd", tc, x.dtype, cpg, opg, wd, x, w, y)
+    libs = build()
     with torch.cuda.device(x.device):
-        rc = lib.mdd_gconv3x3_fwd(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, groups, cpg,
-            feats // groups, code, torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"gconv3x3_fwd: kernel launch failed, CUDA error "
-                           f"{rc}")
-    LAUNCHES["gconv3x3_fwd"] += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if tc:
+            blocks = fwd_tc_blocks(n * h * wd, groups, wd, _sm_count(x.device))
+            _launched("gconv3x3_fwd_tc", libs.tc.mdd_gconv3x3_fwd_tc(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, groups,
+                blocks, stream))
+        else:
+            _launched("gconv3x3_fwd", libs.simt.mdd_gconv3x3_fwd(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, groups,
+                cpg, opg, code, stream))
     return y
 
 
 def wgrad_splits(m: int, groups: int, cpg: int, opg: int) -> tuple:
-    """(splits, pixels per split) for the wgrad's first pass: enough blocks
-    for about four per SM, each summing at least 256 pixels."""
+    """(splits, pixels per split) for the CUDA-core wgrad's first pass:
+    enough blocks for about four per SM, each summing at least 256
+    pixels."""
     tiles = (math.ceil(9 * cpg / _WGRAD_ROWS) * math.ceil(opg / _WGRAD_COLS)
              * groups)
     splits = max(1, min(math.ceil(4 * _SMS / tiles), math.ceil(m / 256)))
@@ -192,10 +325,11 @@ def wgrad_splits(m: int, groups: int, cpg: int, opg: int) -> tuple:
     return math.ceil(m / chunk), chunk
 
 
-def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor,
-                   groups: int) -> torch.Tensor:
+def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor, groups: int,
+                   tc: Optional[bool] = None) -> torch.Tensor:
     """dW (3,3,C/groups,F) of the conv, from its input x (N,H,W,C) and the
-    output cotangent ybar (N,H,W,F); in x's dtype."""
+    output cotangent ybar (N,H,W,F); in x's dtype.  On the card ``tc``
+    picks the kernel (see :func:`_route`); the CPU ignores it."""
     _check("gconv3x3_wgrad", x, ybar)
     n, h, wd, c = x.shape
     feats = ybar.shape[-1]
@@ -209,20 +343,26 @@ def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor,
     m = n * h * wd
     if m == 0:
         return torch.zeros((3, 3, cpg, feats), dtype=x.dtype, device=x.device)
-    splits, chunk = wgrad_splits(m, groups, cpg, opg)
+    dw = torch.empty((3, 3, cpg, feats), dtype=x.dtype, device=x.device)
+    tc = _route("gconv3x3_wgrad", "wgrad", tc, x.dtype, cpg, opg, wd, x,
+                ybar, dw)
+    if tc:
+        splits, per = wgrad_tc_splits(m, groups, _sm_count(x.device))
+    else:
+        splits, per = wgrad_splits(m, groups, cpg, opg)
     ws = torch.empty(splits * groups * 9 * cpg * opg, dtype=torch.float32,
                      device=x.device)
-    dw = torch.empty((3, 3, cpg, feats), dtype=x.dtype, device=x.device)
-    lib = build()
+    libs = build()
     with torch.cuda.device(x.device):
-        rc = lib.mdd_gconv3x3_wgrad(
-            x.data_ptr(), ybar.data_ptr(), ws.data_ptr(), dw.data_ptr(), n, h,
-            wd, groups, cpg, opg, splits, chunk, code,
-            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"gconv3x3_wgrad: kernel launch failed, CUDA "
-                           f"error {rc}")
-    LAUNCHES["gconv3x3_wgrad"] += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if tc:
+            _launched("gconv3x3_wgrad_tc", libs.tc.mdd_gconv3x3_wgrad_tc(
+                x.data_ptr(), ybar.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+                n, h, wd, groups, splits, per, stream))
+        else:
+            _launched("gconv3x3_wgrad", libs.simt.mdd_gconv3x3_wgrad(
+                x.data_ptr(), ybar.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+                n, h, wd, groups, cpg, opg, splits, per, code, stream))
     return dw
 
 

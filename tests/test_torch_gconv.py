@@ -9,6 +9,8 @@ only on the card: ``tests/test_torch_gconv_cuda.py`` (marker ``cuda``) and
 ``chip_smoke.py``.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -152,3 +154,90 @@ def test_wgrad_splits_cover_every_pixel_once(shape, G):
     assert chunk % 16 == 0
     assert (splits - 1) * chunk < m <= splits * chunk
     assert splits * G >= 1
+
+
+def test_dispatch_rule_picks_by_dtype_and_shape():
+    """bfloat16 with 64 input and 64 output channels per group takes the
+    tensor-core kernels; float32, other widths and other dtypes the
+    CUDA-core ones; images too wide for the halo tiles' shared memory too."""
+    for kind in ("fwd", "wgrad"):
+        assert tg.use_tc(kind, torch.bfloat16, 64, 64, 28)
+        assert tg.use_tc(kind, torch.bfloat16, 64, 64, 1)
+        assert not tg.use_tc(kind, torch.float32, 64, 64, 28)
+        assert not tg.use_tc(kind, torch.float16, 64, 64, 28)
+        assert not tg.use_tc(kind, torch.bfloat16, 32, 64, 28)
+        assert not tg.use_tc(kind, torch.bfloat16, 64, 128, 28)
+        widest = max(w for w in range(1, 2048)
+                     if tg.use_tc(kind, torch.bfloat16, 64, 64, w))
+        assert (tg.tc_smem_bytes(kind, widest) <= tg._SMEM_BLOCK_MAX
+                < tg.tc_smem_bytes(kind, widest + 1))
+    with pytest.raises(ValueError, match="unknown kernel kind"):
+        tg.tc_smem_bytes("dgrad", 7)
+
+
+def test_every_nfnet_l0_grouped_site_takes_the_tensor_core_route():
+    """NFNet-L0 at 224^2: the 19 grouped 3x3 stride-1 sites (3 at 28^2, 11
+    at 14^2, 5 at 7^2), all at 64 channels per group in and out, so in
+    bfloat16 every conv, dgrad (same widths, swapped) and wgrad of the main
+    path is on the tensor-core kernels."""
+    from multimodal_dataset_distillation_tpu_torch.models.layers import WSConv
+    from multimodal_dataset_distillation_tpu_torch.models.nfnet import (
+        NFNET_L0, NormFreeNet)
+    net = NormFreeNet(NFNET_L0, gconv=True)
+    sites = []
+
+    def record(mod, inp):
+        sites.append((mod.weight.shape[1], mod.weight.shape[0] // mod.groups,
+                      inp[0].shape[-1]))
+
+    for mod in net.modules():
+        if isinstance(mod, WSConv) and mod.use_gconv:
+            mod.register_forward_pre_hook(record)
+    with torch.no_grad():
+        net(torch.zeros(1, 3, 224, 224))
+    assert sorted(w for _, _, w in sites) == [7] * 5 + [14] * 11 + [28] * 3
+    for cpg, opg, width in sites:
+        for kind in ("fwd", "wgrad"):
+            assert tg.use_tc(kind, torch.bfloat16, cpg, opg, width)
+            assert tg.use_tc(kind, torch.bfloat16, opg, cpg, width)
+
+
+@pytest.mark.parametrize("shape,G", [((100, 28, 28, 128), 2),
+                                     ((100, 14, 14, 384), 6),
+                                     ((100, 7, 7, 384), 6),
+                                     ((3, 9, 5, 128), 2),
+                                     ((11, 7, 7, 384), 6),
+                                     ((1, 30, 31, 128), 2)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_tc_plans_cover_every_pixel_once(shape, G, sms):
+    """The tensor-core kernels' grids: the forward's persistent blocks walk
+    every 128-pixel tile exactly once, evenly and all resident at once;
+    the wgrad's splits cover every tile exactly once, about one block per
+    SM."""
+    n, h, w, _ = shape
+    m = n * h * w
+    tiles = math.ceil(m / tg.TC_TILE)
+    blocks = tg.fwd_tc_blocks(m, G, w, sms)
+    walks = [range(b, tiles, blocks) for b in range(blocks)]
+    assert sorted(t for walk in walks for t in walk) == list(range(tiles))
+    assert max(map(len, walks)) - min(map(len, walks)) <= 1
+    assert 1 <= blocks * G <= max(G, sms * tg._FWD_TC_BLOCKS_PER_SM)
+    splits, per = tg.wgrad_tc_splits(m, G, sms)
+    spans = [range(s * per, min(tiles, (s + 1) * per)) for s in range(splits)]
+    assert [t for span in spans for t in span] == list(range(tiles))
+    assert all(len(span) > 0 for span in spans)
+    assert splits * G <= max(G, sms)
+    assert sum(min(m, tg.TC_TILE * span.stop) - tg.TC_TILE * span.start
+               for span in spans) == m
+
+
+def test_cpu_wrappers_take_the_plain_version_on_either_route():
+    """On the CPU the route argument is moot: both give the plain
+    version's result, and no kernel is counted."""
+    x, w = _data(2, 64, N=1, H=3)
+    before = dict(tg.LAUNCHES)
+    ref = tg.gconv3x3_ref(_t(x), _t(w), 2)
+    for tc in (None, True, False):
+        np.testing.assert_array_equal(
+            tg.gconv3x3_fwd(_t(x), _t(w), 2, tc=tc).numpy(), ref.numpy())
+    assert tg.LAUNCHES == before

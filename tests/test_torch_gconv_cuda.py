@@ -1,4 +1,5 @@
-"""The grouped 3x3 conv kernels (``csrc/gconv3x3.cu``) on the card.
+"""The grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores, and
+``csrc/gconv3x3_tc.cu``, tensor cores) on the card.
 
 Marker ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -54,8 +55,55 @@ def test_kernels_match_plain_on_card(card, dtype, G, cpg, opg):
     _close(tg.gconv3x3_wgrad(x, ybar, G),
            tg.gconv3x3_wgrad_ref(xf, ybf, G), dtype)
     torch.cuda.synchronize()
-    assert tg.LAUNCHES["gconv3x3_fwd"] == before["gconv3x3_fwd"] + 2
-    assert tg.LAUNCHES["gconv3x3_wgrad"] == before["gconv3x3_wgrad"] + 1
+    # bfloat16 at group width 64 takes the tensor-core route
+    sfx = "_tc" if tg.use_tc("fwd", dtype, cpg, opg, 7) else ""
+    assert tg.LAUNCHES["gconv3x3_fwd" + sfx] == before["gconv3x3_fwd" + sfx] + 2
+    assert (tg.LAUNCHES["gconv3x3_wgrad" + sfx]
+            == before["gconv3x3_wgrad" + sfx] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,G", [
+    (3, 9, 5, 2),     # H != W, N*H*W = 135: one full tile and a 7-pixel tail
+    (11, 7, 7, 6),    # W = 7: a 128-pixel tile spans ~2.6 images; G = 6
+    (2, 1, 13, 2),    # H = 1: the dy = +-1 taps are all padding
+    (5, 17, 1, 2),    # W = 1: the dx = +-1 taps are all padding
+    (1, 30, 31, 2),   # W = 31 > 28: the widest halo of these cases
+])
+def test_tc_kernels_match_plain_on_card(card, N, H, W, G):
+    """The tensor-core kernels (bfloat16, 64 channels per group) against the
+    plain versions at the shapes the halo tiling puts at risk: forward,
+    input gradient (forward on rot_swap) and weight gradient."""
+    c = G * 64
+    x = torch.randn(N, H, W, c, device="cuda", generator=card).bfloat16()
+    w = (torch.randn(3, 3, 64, c, device="cuda", generator=card)
+         / 24.0).bfloat16()
+    ybar = torch.randn(N, H, W, c, device="cuda", generator=card).bfloat16()
+    xf, wf, ybf = x.float(), w.float(), ybar.float()
+    before = dict(tg.LAUNCHES)
+    _close(tg.gconv3x3_fwd(x, w, G, tc=True), tg.gconv3x3_ref(xf, wf, G),
+           torch.bfloat16)
+    xr = xf.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(tg.gconv3x3_ref(xr, wf, G), xr, ybf)
+    _close(tg.gconv3x3_fwd(ybar, tg.rot_swap(w, G), G, tc=True), dx,
+           torch.bfloat16)
+    _close(tg.gconv3x3_wgrad(x, ybar, G, tc=True),
+           tg.gconv3x3_wgrad_ref(xf, ybf, G), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES["gconv3x3_fwd_tc"] == before["gconv3x3_fwd_tc"] + 2
+    assert tg.LAUNCHES["gconv3x3_wgrad_tc"] == before["gconv3x3_wgrad_tc"] + 1
+
+
+@pytest.mark.cuda
+def test_tc_wgrad_is_bit_identical_on_repeat(card):
+    """The split-K wgrad adds its per-block partials in a fixed order: two
+    calls on the same inputs give the same bits."""
+    x = torch.randn(100, 14, 14, 384, device="cuda", generator=card).bfloat16()
+    ybar = torch.randn(100, 14, 14, 384, device="cuda",
+                       generator=card).bfloat16()
+    a = tg.gconv3x3_wgrad(x, ybar, 6, tc=True)
+    b = tg.gconv3x3_wgrad(x, ybar, 6, tc=True)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -88,3 +136,5 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     xs = torch.randn(1, 4, 8, 16, device="cuda")[:, :, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         tg.gconv3x3_fwd(xs, w.float(), 2)
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        tg.gconv3x3_fwd(x.float(), w.float(), 2, tc=True)
