@@ -28,6 +28,17 @@ each of which raises on failure:
 4. One float32 outer step with the kernels (the CUDA-core route; counters
    read around it) against the same step on ``F.conv2d`` (TF32 off), from
    the same seed and state.
+5. The eval path, through its entry point: ``cli/eval_distilled.main``
+   trains 5 fresh NFNet-L0 students at 224^2 on phase 3's distilled set
+   (100 pairs, its learned LR) and scores each on a 1000 x 5 synthetic
+   test split (Flickr30K's test shape) with seeded text embeddings in
+   place of BERT's; float32, so the CUDA-core kernels; counters read
+   around it.
+6. One ``evaluate_synset`` of that path with the kernels against the same
+   on ``F.conv2d`` (TF32 off), from the same init, seeds and batches.
+
+Phase 2 also times the CUDA-core kernels in float32 (the route's dtype on
+phases 4-6) beside cuDNN's float32 call with TF32 off and on.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.
@@ -37,8 +48,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -50,6 +63,7 @@ HERE = Path(__file__).resolve().parent
 PKG = "multimodal_dataset_distillation_tpu_torch"
 
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_FP32 = 67e12    # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12    # H100 SXM device memory bytes/s
 
 # NFNet-L0's stride-1 grouped 3x3 sites at 224^2: (H, C, groups) -> count
@@ -69,6 +83,8 @@ KERNELS = {
 # runs 8 forward-kernel and 4 wgrad-kernel calls per inner step
 MAIN_PATH_PER_STEP = {"gconv3x3_fwd_tc": 19 * 8 * 8,
                       "gconv3x3_wgrad_tc": 19 * 4 * 8}
+METRIC_KEYS = ("txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1",
+               "img_r5", "img_r10", "img_r_mean", "r_mean")
 
 
 def card_line() -> str:
@@ -176,51 +192,69 @@ def check_kernels(gc):
             if tc and not torch.equal(dw, gc.gconv3x3_wgrad(x, yb, groups,
                                                             tc=True)):
                 raise AssertionError("tensor-core wgrad differs on repeat")
-        # times in bfloat16, the main path's dtype
-        x, w, yb = x32.bfloat16(), w32.bfloat16(), yb32.bfloat16()
-        w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        fwd_in, wgrad_in = cold_copies(x, w), cold_copies(x, yb)
-        lib_in = {"fwd": ((x, w_oihw), cold_copies(x, w_oihw)),
-                  "wgrad": ((x, yb), wgrad_in)}
-        flops = 2.0 * BATCH * h * h * c * 9 * cpg
-        nbytes = x.numel() * 2 + w.numel() * 2 + yb.numel() * 2
-        bound = bound_ms(flops, nbytes, PEAK_BF16)
-        library = {
-            "fwd": lambda a, b: F.conv2d(a.permute(0, 3, 1, 2), b, padding=1,
-                                         groups=groups),
-            "wgrad": lambda a, b: torch.ops.aten.convolution_backward(
-                b.permute(0, 3, 1, 2), a.permute(0, 3, 1, 2), w_oihw, None,
-                [1, 1], [1, 1], [1, 1], False, [0, 0], groups,
-                [False, True, False]),
-        }
-        plain = {"fwd": lambda a, b: gc.gconv3x3_ref(a, b, groups),
-                 "wgrad": lambda a, b: gc.gconv3x3_wgrad_ref(a, b, groups)}
-        for kind, warm, cold in (("fwd", (x, w), fwd_in),
-                                 ("wgrad", (x, yb), wgrad_in)):
-            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = bound
-            row[f"{kind}_plain_ms"] = cuda_ms(plain[kind], warm)
-            row[f"{kind}_library_ms"] = cuda_ms(library[kind],
-                                                lib_in[kind][0])
-            row[f"{kind}_library_cold_ms"] = cuda_ms(library[kind],
-                                                     lib_in[kind][1])
-            raw = getattr(gc, f"gconv3x3_{kind}")
-            for route in ("simt", "tc"):
-                call = (lambda a, b, tc=(route == "tc"):
-                        raw(a, b, groups, tc=tc))
-                row[f"{kind}_{route}_ms"] = cuda_ms(call, warm)
-                row[f"{kind}_{route}_cold_ms"] = cuda_ms(call, cold)
-        del fwd_in, wgrad_in, lib_in
-        print("  bf16 ms: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in row.items() if k.endswith("_ms")),
-            flush=True)
-        for kind in ("fwd", "wgrad"):
-            for route in ("simt", "tc"):
-                share = (row[f"{kind}_bound_ms"]
-                         / row[f"{kind}_{route}_cold_ms"])
-                print(f"  {kind} {route}: bound share (cold) {share:.3f}",
-                      flush=True)
+        # bf16 (the main path's dtype) on both routes; float32 (the dtype
+        # of phases 4-6) on the CUDA-core route
+        time_row(gc, row, x32.bfloat16(), w32.bfloat16(), yb32.bfloat16(),
+                 groups, ("simt", "tc"), "", PEAK_BF16)
+        time_row(gc, row, x32, w32, yb32, groups, ("simt",), "_f32",
+                 PEAK_FP32)
         rows.append(row)
     return rows
+
+
+def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
+    """Times of one shape in one dtype into ``row`` (keys ending in
+    ``sfx``): each route's kernels warm and cold, the plain version, and
+    cuDNN's call (for float32 with TF32 off, the semantics, and on,
+    PyTorch's default), beside the bound at ``peak``."""
+    h, cpg, c = x.shape[1], w.shape[2], x.shape[3]
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    fwd_in, wgrad_in = cold_copies(x, w), cold_copies(x, yb)
+    lib_in = {"fwd": ((x, w_oihw), cold_copies(x, w_oihw)),
+              "wgrad": ((x, yb), wgrad_in)}
+    flops = 2.0 * BATCH * h * h * c * 9 * cpg
+    nbytes = (x.numel() + w.numel() + yb.numel()) * x.element_size()
+    bound = bound_ms(flops, nbytes, peak)
+    library = {
+        "fwd": lambda a, b: F.conv2d(a.permute(0, 3, 1, 2), b, padding=1,
+                                     groups=groups),
+        "wgrad": lambda a, b: torch.ops.aten.convolution_backward(
+            b.permute(0, 3, 1, 2), a.permute(0, 3, 1, 2), w_oihw, None,
+            [1, 1], [1, 1], [1, 1], False, [0, 0], groups,
+            [False, True, False]),
+    }
+    plain = {"fwd": lambda a, b: gc.gconv3x3_ref(a, b, groups),
+             "wgrad": lambda a, b: gc.gconv3x3_wgrad_ref(a, b, groups)}
+    for kind, warm, cold in (("fwd", (x, w), fwd_in),
+                             ("wgrad", (x, yb), wgrad_in)):
+        row[f"{kind}_bound{sfx}_ms"], row[f"{kind}_bound{sfx}_by"] = bound
+        row[f"{kind}_plain{sfx}_ms"] = cuda_ms(plain[kind], warm)
+        row[f"{kind}_library{sfx}_ms"] = cuda_ms(library[kind],
+                                                 lib_in[kind][0])
+        row[f"{kind}_library{sfx}_cold_ms"] = cuda_ms(library[kind],
+                                                      lib_in[kind][1])
+        if x.dtype == torch.float32:
+            torch.backends.cudnn.allow_tf32 = True
+            row[f"{kind}_library{sfx}_tf32_ms"] = cuda_ms(library[kind],
+                                                          lib_in[kind][0])
+            torch.backends.cudnn.allow_tf32 = False
+        raw = getattr(gc, f"gconv3x3_{kind}")
+        for route in routes:
+            call = (lambda a, b, tc=(route == "tc"):
+                    raw(a, b, groups, tc=tc))
+            row[f"{kind}_{route}{sfx}_ms"] = cuda_ms(call, warm)
+            row[f"{kind}_{route}{sfx}_cold_ms"] = cuda_ms(call, cold)
+    del fwd_in, wgrad_in, lib_in
+    print(f"  {str(x.dtype)[6:]} ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in row.items()
+        if k.endswith("_ms") and ("_f32" in k) == bool(sfx)),
+        flush=True)
+    for kind in ("fwd", "wgrad"):
+        for route in routes:
+            share = (row[f"{kind}_bound{sfx}_ms"]
+                     / row[f"{kind}_{route}{sfx}_cold_ms"])
+            print(f"  {kind} {route}{sfx}: bound share (cold) {share:.3f}",
+                  flush=True)
 
 
 def check_hvp(gc):
@@ -309,7 +343,8 @@ def make_distiller(cfg, seed: int = 0, device: str = "cuda"):
 
 def main_path(gc, cfg, steps: int = 3):
     """Phase 3: warm-up step + ``steps`` timed outer steps; counters are
-    zeroed just before and read just after."""
+    zeroed just before and read just after.  -> (metrics, the distilled
+    set: image_syn, text_syn, syn_lr_img, syn_lr_txt)."""
     d, traj_img, traj_txt, rng = make_distiller(cfg)
     st0 = d.state
     torch.cuda.synchronize()
@@ -349,7 +384,9 @@ def main_path(gc, cfg, steps: int = 3):
         "syn_lr_img": float(st.syn_lr_img), "syn_lr_txt": float(st.syn_lr_txt),
     }
     print("main path: " + json.dumps(out), flush=True)
-    return out
+    image_syn, text_syn = d.syn_arrays()
+    return out, (image_syn, text_syn, float(st.syn_lr_img),
+                 float(st.syn_lr_txt))
 
 
 def compare_f32(gc, cfg, mb: int = 25, syn_steps: int = 2):
@@ -400,38 +437,239 @@ def compare_f32(gc, cfg, mb: int = 25, syn_steps: int = 2):
     return out
 
 
-def kernel_entries(rows, launches):
-    """One entry per kernel; times bf16, summed over one tower pass (19
-    sites, mb=100).  ``launches`` of the tensor-core kernels are phase 3's
-    (the bf16 main path), of the CUDA-core ones phase 4's (float32)."""
+def eval_cfg(Config, **kw):
+    """Phase 5's configuration: the eval CLI at NFNet-L0 224^2, 5 students,
+    a 1000-image synthetic test split (5 captions each: Flickr30K's test
+    shape), the kernels on, and no pretrained tower, so that the result
+    does not depend on whether a checkpoint file is present."""
+    base = dict(dataset="synthetic", synthetic_test_size=1000,
+                image_size=224, image_encoder="nfnet", pallas_gconv=True,
+                num_eval=5, epoch_eval_train=1, batch_train=128,
+                batch_size_test=128, k_test=128, parallel_eval=True,
+                std=True, image_pretrained=False, seed=0)
+    return Config(**{**base, **kw})
+
+
+def eval_launches(cfg, n_pairs: int) -> dict:
+    """Kernel launches of the eval path: per student, every training step
+    runs each of the 19 grouped sites forward, its input gradient (the
+    stem's parameters lie upstream of every site) and its wgrad, and every
+    test batch runs them forward; float32, so only the CUDA-core kernels."""
+    steps = (cfg.epoch_eval_train + 1) * math.ceil(n_pairs / cfg.batch_train)
+    tests = math.ceil(cfg.synthetic_test_size / cfg.batch_size_test)
+    return {"gconv3x3_fwd": cfg.num_eval * 19 * (2 * steps + tests),
+            "gconv3x3_wgrad": cfg.num_eval * 19 * steps,
+            "gconv3x3_fwd_tc": 0, "gconv3x3_wgrad_tc": 0}
+
+
+def text_cache(cfg) -> np.ndarray:
+    """Stand-ins for the BERT embeddings of the test captions (5 per image,
+    768-d), drawn from the seed."""
+    return np.random.RandomState(cfg.seed).randn(
+        5 * cfg.synthetic_test_size, 768).astype(np.float32)
+
+
+def eval_path(gc, Config, syn, **kw):
+    """Phase 5: ``cli/eval_distilled.main`` on phase 3's distilled set, in a
+    temporary working directory (the text cache is read from there);
+    counters zeroed just before and read just after.  Each student's
+    training steps and retrieval pass are timed on the host clock between
+    synchronizes, by wrapping the trainer's step and ``retrieval_eval``."""
+    from multimodal_dataset_distillation_tpu_torch.cli import eval_distilled
+    from multimodal_dataset_distillation_tpu_torch.engine import eval as ev
+    from multimodal_dataset_distillation_tpu_torch.engine import expert
+
+    image_syn, text_syn, lr_img, lr_txt = syn
+    times = {"train": {}, "retrieval": []}
+
+    def timed(fn, record):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            record(a, (time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    def add_train(a, ms):   # a[0]: the student's trainer
+        times["train"][id(a[0])] = times["train"].get(id(a[0]), 0.0) + ms
+
+    step, retrieval = expert.BiEncoderTrainer.train_batch, ev.retrieval_eval
+    expert.BiEncoderTrainer.train_batch = timed(step, add_train)
+    ev.retrieval_eval = timed(retrieval,
+                              lambda a, ms: times["retrieval"].append(ms))
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            np.savez("distilled_0.npz", image_syn=image_syn,
+                     text_syn=text_syn, syn_lr_img=np.float32(lr_img),
+                     syn_lr_txt=np.float32(lr_txt))
+            cfg = eval_cfg(Config, distilled_npz="distilled_0.npz", **kw)
+            np.savez("synthetic_bert_text_embed.npz",
+                     bert_test_embed=text_cache(cfg))
+            torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gc.reset_launches()
+            t0 = time.perf_counter()
+            results = eval_distilled.main(cfg, argv=[])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(gc.LAUNCHES)
+    finally:
+        os.chdir(cwd)
+        expert.BiEncoderTrainer.train_batch = step
+        ev.retrieval_eval = retrieval
+    want = eval_launches(cfg, len(image_syn))
+    if launches != want:
+        raise AssertionError(f"eval path launches {launches}, expected "
+                             f"{want}")
+    if len(results) != cfg.num_eval:
+        raise AssertionError(f"{len(results)} eval results")
+    for j, val in enumerate(results):
+        if tuple(val) != METRIC_KEYS or not all(
+                math.isfinite(v) and 0.0 <= v <= 100.0 for v in val.values()):
+            raise AssertionError(f"eval model {j}: bad metrics {val}")
+    train_ms = list(times["train"].values())
+    out = {"num_eval": cfg.num_eval, "pairs": len(image_syn),
+           "lr_net": lr_img, "test_images": cfg.synthetic_test_size,
+           "wall_s": wall, "train_ms": train_ms,
+           "retrieval_ms": times["retrieval"],
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated()
+           / 2**30, "launches": launches,
+           "results": [{k: float(v) for k, v in r.items()} for r in results]}
+    for j, val in enumerate(results):
+        print(f"eval model {j}: train {train_ms[j]:.1f} ms, retrieval "
+              f"{times['retrieval'][j]:.1f} ms, " + " ".join(
+                  f"{k}={v:.2f}" for k, v in val.items()), flush=True)
+    print("eval path: " + json.dumps(out), flush=True)
+    return out
+
+
+def compare_eval(gc, Config, syn, **kw):
+    """Phase 6: one ``evaluate_synset`` of the eval path (same init, seeds
+    and batches) with the kernels and on ``F.conv2d``, TF32 off for convs
+    and matmuls.  Tolerances: each tower's trained parameters 1e-4 in
+    relative error norm, and the i2t scores before the top-k mask 1e-3 of
+    the largest score in max abs error (the convs sum in other orders, and
+    the difference passes through two SGD steps and a 19-site encode).
+    The metrics are printed side by side, not held equal: a near-tie may
+    swap one rank."""
+    from multimodal_dataset_distillation_tpu_torch.cli.distill import (
+        make_eval_initializer)
+    from multimodal_dataset_distillation_tpu_torch.data import get_dataset
+    from multimodal_dataset_distillation_tpu_torch.engine import eval as ev
+    from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
+        build_bi_encoder)
+
+    image_syn, text_syn, lr_img, _ = syn
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = eval_cfg(Config, lr_net=lr_img, **kw)
+    _, testloader, _, _ = get_dataset(cfg)
+    bert = text_cache(cfg)
+    init = make_eval_initializer(cfg)
+    res = {}
+    for gconv in (True, False):
+        c = cfg.replace(pallas_gconv=gconv)
+        model = build_bi_encoder(c)
+        variables = init(model, cfg.seed + 1000)
+        gc.reset_launches()
+        model, acc, val = ev.evaluate_synset(0, model, variables, image_syn,
+                                             text_syn, testloader, c, bert)
+        sims = ev.score_matrix(testloader, model, bert)
+        torch.cuda.synchronize()
+        res[gconv] = {"launches": dict(gc.LAUNCHES), "acc": acc, "val": val,
+                      "sims": sims, "init": variables,
+                      "towers": {t: dict(getattr(model, t).named_parameters())
+                                 for t in ("image_encoder",
+                                           "text_projection")}}
+    a, b = res[True], res[False]
+    if not (a["launches"]["gconv3x3_fwd"] and a["launches"]["gconv3x3_wgrad"]
+            and not b["launches"]["gconv3x3_fwd"]
+            and not a["launches"]["gconv3x3_fwd_tc"]):
+        raise AssertionError(f"phase 6 launches: kernels {a['launches']}, "
+                             f"F.conv2d {b['launches']}")
+    out = {"launches": a["launches"], "acc_kernel": a["acc"],
+           "acc_plain": b["acc"]}
+    for t in a["towers"]:
+        pa, pb = a["towers"][t], b["towers"][t]
+        flat = lambda d: torch.cat([v.detach().double().reshape(-1)  # noqa: E731
+                                    for v in d.values()])
+        ka, kb = flat(pa), flat(pb)
+        init0 = flat({n: a["init"][f"{t}.{n}"] for n in pa})
+        out[f"{t}_rel_err"] = float((ka - kb).norm() / kb.norm())
+        # diagnostic: the same of the two SGD steps' updates
+        out[f"{t}_update_rel_err"] = float(
+            (ka - kb).norm() / (kb - init0).norm())
+        if not (torch.isfinite(ka).all() and out[f"{t}_rel_err"] <= 1e-4):
+            raise AssertionError(f"trained {t} differs: {out}")
+    sa, sb = a["sims"], b["sims"]
+    scale = float(sb.abs().max())
+    out["score_max_abs_err"] = float((sa - sb).abs().max())
+    out["score_max_abs"] = scale
+    if not (bool(torch.isfinite(sa).all())
+            and out["score_max_abs_err"] <= 1e-3 * scale):
+        raise AssertionError(f"eval scores differ: {out}")
+    for k in METRIC_KEYS:
+        out[f"{k}_kernel_plain"] = [float(a["val"][k]), float(b["val"][k])]
+    print("eval kernels vs F.conv2d: " + json.dumps(out), flush=True)
+    return out
+
+
+def kernel_entries(rows, launches, launches_eval):
+    """One entry per kernel, summed over one tower pass (19 sites, mb=100),
+    in the dtype of the paths that launch it: float32 for the CUDA-core
+    kernels (phases 4-6; their bf16 times beside, as ``*_bf16``), bf16 for
+    the tensor-core ones.  ``launches``: of the tensor-core kernels phase
+    3's (the bf16 main path), of the CUDA-core ones phase 4's (the float32
+    outer step); ``launches_eval``: phase 5's (the eval path)."""
     def total(key):
         return sum(r["sites"] * r[key] for r in rows)
 
+    def err(kind, tag):
+        return max(r[f"{k}_err_{tag}"] for r in rows
+                   for k in ((kind, "dgrad") if kind == "fwd" else (kind,)))
+
     entries = []
     for name, (kind, route, src, line) in KERNELS.items():
-        tags = (f"{route}_bf16",)
-        errs = [r[f"{k}_err_{t}"] for r in rows for t in tags
-                for k in ((kind, "dgrad") if kind == "fwd" else (kind,))]
-        bound, cold = total(f"{kind}_bound_ms"), total(f"{kind}_{route}_cold_ms")
-        entries.append({
+        sfx = "_f32" if route == "simt" else ""
+        bound, cold = (total(f"{kind}_bound{sfx}_ms"),
+                       total(f"{kind}_{route}{sfx}_cold_ms"))
+        entry = {
             "name": name, "route": "cuda",
             "source": f"{PKG}/csrc/{src}",
             "replaces": f"{TPU_SRC}:{line}",
+            "dtype": "float32" if sfx else "bfloat16",
             "launches": launches[name],
-            "max_abs_err": max(errs),
-            "ms": total(f"{kind}_{route}_ms"), "ms_cold": cold,
-            "plain_ms": total(f"{kind}_plain_ms"),
+            "launches_eval": launches_eval[name],
+            "max_abs_err": err(kind, f"{route}{sfx or '_bf16'}"),
+            "ms": total(f"{kind}_{route}{sfx}_ms"), "ms_cold": cold,
+            "plain_ms": total(f"{kind}_plain{sfx}_ms"),
             "bound_ms": bound, "bound_share_cold": bound / cold,
-            "bound_by": max(rows, key=lambda r: r[f"{kind}_bound_ms"])[
-                f"{kind}_bound_by"],
-            "library_ms": total(f"{kind}_library_ms"),
-            "library_cold_ms": total(f"{kind}_library_cold_ms"),
-            "per_shape": [{k: r[k] for k in (
-                "shape", "groups", "sites", f"{kind}_{route}_ms",
-                f"{kind}_{route}_cold_ms", f"{kind}_plain_ms",
-                f"{kind}_library_ms", f"{kind}_library_cold_ms",
-                f"{kind}_bound_ms")} for r in rows],
-        })
+            "bound_by": max(rows, key=lambda r: r[f"{kind}_bound{sfx}_ms"])[
+                f"{kind}_bound{sfx}_by"],
+            "library_ms": total(f"{kind}_library{sfx}_ms"),
+            "library_cold_ms": total(f"{kind}_library{sfx}_cold_ms"),
+        }
+        keys = ["shape", "groups", "sites", f"{kind}_{route}{sfx}_ms",
+                f"{kind}_{route}{sfx}_cold_ms", f"{kind}_plain{sfx}_ms",
+                f"{kind}_library{sfx}_ms", f"{kind}_library{sfx}_cold_ms",
+                f"{kind}_bound{sfx}_ms"]
+        if sfx:   # cuDNN float32 with TF32, and this route's bf16 times
+            entry["library_tf32_ms"] = total(f"{kind}_library{sfx}_tf32_ms")
+            entry.update({
+                "max_abs_err_bf16": err(kind, f"{route}_bf16"),
+                "ms_bf16": total(f"{kind}_{route}_ms"),
+                "ms_cold_bf16": total(f"{kind}_{route}_cold_ms"),
+                "bound_ms_bf16": total(f"{kind}_bound_ms"),
+                "library_ms_bf16": total(f"{kind}_library_ms")})
+            keys.append(f"{kind}_library{sfx}_tf32_ms")
+        entry["per_shape"] = [{k: r[k] for k in keys} for r in rows]
+        entries.append(entry)
     return entries
 
 
@@ -463,13 +701,19 @@ def main() -> int:
     check_hvp(gc)
     torch.backends.cudnn.allow_tf32 = True   # the library defaults again
     cfg = main_cfg(Config)
-    path = main_path(gc, cfg)
+    path, syn = main_path(gc, cfg)
     torch.cuda.empty_cache()
     f32 = compare_f32(gc, cfg)
+    torch.cuda.empty_cache()
+    ev = eval_path(gc, Config, syn)
+    torch.cuda.empty_cache()
+    compare_eval(gc, Config, syn)
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
-    print(json.dumps({"kernels": kernel_entries(rows, launches)}), flush=True)
+    print(json.dumps({"kernels": kernel_entries(rows, launches,
+                                                ev["launches"])}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

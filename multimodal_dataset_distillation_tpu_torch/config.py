@@ -2,8 +2,10 @@
 
 Same field names and defaults as ``multimodal_dataset_distillation_tpu/
 config.py`` (the reference's flag names), so one configuration reads the
-same in both packages.  The reference-flag argparse shims come with the
-port's CLI.
+same in both packages.  :func:`parse_config` is the reference-flag shim
+of the JAX ``config.py:360-446``: the same flags, ``type=bool`` flags
+parsed as strings, store-true switches, ``--dsa True|False``, and unknown
+flags warned about and ignored.  ``device`` is a runtime field, not a flag.
 
 Fields the distillation step of this package reads: ``inner_dtype``,
 ``inner_scale``, ``hvp_mode``, ``fr_resid_dtype``, ``pallas_gconv``,
@@ -19,10 +21,18 @@ step's graph alive at a time, which is what those knobs traded for on XLA.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import datetime
+import sys
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+
+def _str2bool(v: Any) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("true", "1", "yes", "t", "y")
 
 
 @dataclass
@@ -192,3 +202,80 @@ class Config:
         if self.text_encoder == "bert":
             return 768
         raise NotImplementedError(f"Unsupported text encoder: {self.text_encoder}")
+
+
+# flags the reference declared with `type=bool`: parsed from a string, so a
+# bare `--std` is an error, as it is there
+_BOOL_VALUED = {
+    "text_pretrained", "image_pretrained", "text_trainable", "image_trainable",
+    "load_npy", "only_has_image_projection", "grounding", "distill", "draw",
+    "transfer", "std", "load_all", "texture", "recursive",
+}
+# store_true switches of the reference, and new switches that default off
+_STORE_TRUE = {
+    "zca", "decay", "max_violation", "force_save", "disable_wandb",
+    "distributed", "no_aug", "basis", "device_augment",
+}
+# `--dsa` is a str choice {'True', 'False'} in the reference
+_TRISTATE_STR = {"dsa"}
+
+
+def add_reference_flags(parser: argparse.ArgumentParser,
+                        defaults: Optional[Config] = None
+                        ) -> argparse.ArgumentParser:
+    """Register the union of the reference's flags (every ``Config`` field
+    but the runtime ``device``) on ``parser``."""
+    cfg = defaults or Config()
+    parser.add_argument("--mesh_shape", type=str,
+                        default=",".join(map(str, cfg.mesh_shape)))
+    parser.add_argument("--mesh_axes", type=str,
+                        default=",".join(cfg.mesh_axes))
+    for f in dataclasses.fields(Config):
+        if f.name in ("mesh_shape", "mesh_axes", "device"):
+            continue
+        flag = f"--{f.name}"
+        default = getattr(cfg, f.name)
+        if f.name in _TRISTATE_STR:
+            parser.add_argument(flag, type=str,
+                                default="True" if default else "False",
+                                choices=["True", "False"])
+        elif f.name in _STORE_TRUE:
+            parser.add_argument(flag, action="store_true", default=default)
+        elif f.name in _BOOL_VALUED or isinstance(default, bool):
+            parser.add_argument(flag, type=_str2bool, default=default)
+        elif f.name in ("max_files", "max_experts") or isinstance(default, int):
+            parser.add_argument(flag, type=int, default=default)
+        elif isinstance(default, float):
+            parser.add_argument(flag, type=float, default=default)
+        else:
+            parser.add_argument(flag, type=str, default=default)
+    return parser
+
+
+def explicit_flags(argv: Optional[Sequence[str]] = None) -> set:
+    """Names of the flags present on the command line (``sys.argv`` when
+    ``argv`` is None): where a flag the user typed must beat a value read
+    from data, which an argparse default cannot say."""
+    toks = list(sys.argv[1:]) if argv is None else list(argv)
+    return {t[2:].split("=", 1)[0] for t in toks if t.startswith("--")}
+
+
+def parse_config(argv: Optional[Sequence[str]] = None,
+                 defaults: Optional[Config] = None) -> Config:
+    """A reference-style command line -> :class:`Config`; unknown flags are
+    warned about and ignored (the reference's ``parse_known_args``)."""
+    parser = argparse.ArgumentParser(description="Parameter Processing")
+    add_reference_flags(parser, defaults)
+    args, unknown = parser.parse_known_args(argv)
+    if unknown:
+        print("Warning: Ignoring unknown arguments:", unknown)
+    kw: Dict[str, Any] = vars(args)
+    kw["dsa"] = _str2bool(kw.get("dsa", "True"))
+    kw["mesh_shape"] = tuple(int(x) for x in str(kw.get("mesh_shape", "")
+                                                 ).split(",") if x.strip())
+    kw["mesh_axes"] = tuple(x for x in str(kw.get("mesh_axes", "data")
+                                           ).split(",") if x.strip()) or ("data",)
+    if defaults is not None:
+        kw["device"] = defaults.device
+    valid = {f.name for f in dataclasses.fields(Config)}
+    return Config(**{k: v for k, v in kw.items() if k in valid})

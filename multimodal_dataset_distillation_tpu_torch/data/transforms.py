@@ -1,0 +1,112 @@
+"""Host-side image transforms (PIL) producing NHWC float32 arrays.
+
+The port's own copy of ``multimodal_dataset_distillation_tpu/data/
+transforms.py:24-94``, the reference's torchvision pipelines
+(``data/__init__.py:193-227``): train = RandomResizedCrop(bicubic, scale
+0.5-1.0) + HFlip + RandAugment(2,5, 10-op list) + CLIP normalization; test
+= square bicubic resize + CLIP normalization.
+
+The JAX package's two other train transforms, over raw file bytes through
+the C++ decode pool (``native_decode``) and raw crops for the in-step
+augment (``device_augment``), are not ported yet:
+:func:`unported_train_transform` stands in for them and raises when called.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Tuple
+
+import numpy as np
+from PIL import Image
+
+from ..ops.randaugment import VL_AUGS, RandomAugment
+from ..utils.augrng import get as _rng
+
+# CLIP normalization (data/__init__.py:194-196)
+CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
+CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
+
+
+def normalize(arr: np.ndarray) -> np.ndarray:
+    """uint8 HWC -> normalized float32 HWC."""
+    return (arr.astype(np.float32) / 255.0 - CLIP_MEAN) / CLIP_STD
+
+
+def denormalize(arr: np.ndarray) -> np.ndarray:
+    return np.clip((arr * CLIP_STD + CLIP_MEAN) * 255.0, 0, 255)
+
+
+def sample_crop_params(w: int, h: int,
+                       scale: Tuple[float, float] = (0.5, 1.0),
+                       ratio: Tuple[float, float] = (3 / 4, 4 / 3)
+                       ) -> Tuple[int, int, int, int]:
+    """torchvision RandomResizedCrop sampling -> (x, y, cw, ch)."""
+    area = w * h
+    for _ in range(10):
+        target = area * _rng().uniform(*scale)
+        log_r = _rng().uniform(math.log(ratio[0]), math.log(ratio[1]))
+        ar = math.exp(log_r)
+        cw = int(round(math.sqrt(target * ar)))
+        ch = int(round(math.sqrt(target / ar)))
+        if 0 < cw <= w and 0 < ch <= h:
+            x = _rng().randint(0, w - cw + 1)
+            y = _rng().randint(0, h - ch + 1)
+            return x, y, cw, ch
+    # fallback: center crop at clamped ratio
+    in_ratio = w / h
+    if in_ratio < ratio[0]:
+        cw, ch = w, int(round(w / ratio[0]))
+    elif in_ratio > ratio[1]:
+        cw, ch = int(round(h * ratio[1])), h
+    else:
+        cw, ch = w, h
+    return (w - cw) // 2, (h - ch) // 2, cw, ch
+
+
+def random_resized_crop(img: Image.Image, size: int,
+                        scale: Tuple[float, float] = (0.5, 1.0),
+                        ratio: Tuple[float, float] = (3 / 4, 4 / 3)
+                        ) -> Image.Image:
+    """torchvision RandomResizedCrop semantics (bicubic)."""
+    x, y, cw, ch = sample_crop_params(*img.size, scale=scale, ratio=ratio)
+    return img.resize((size, size), Image.BICUBIC, box=(x, y, x + cw, y + ch))
+
+
+def make_train_transform(image_size: int = 224,
+                         min_scale: float = 0.5) -> Callable:
+    aug = RandomAugment(2, 5, isPIL=True, augs=VL_AUGS)
+
+    def transform(img: Image.Image) -> np.ndarray:
+        img = img.convert("RGB")
+        img = random_resized_crop(img, image_size, scale=(min_scale, 1.0))
+        if _rng().random_sample() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        img = aug(img)
+        return normalize(np.asarray(img))
+
+    return transform
+
+
+def make_test_transform(image_size: int = 224) -> Callable:
+    def transform(img: Image.Image) -> np.ndarray:
+        img = img.convert("RGB")
+        img = img.resize((image_size, image_size), Image.BICUBIC)
+        return normalize(np.asarray(img))
+
+    return transform
+
+
+def unported_train_transform(mode: str) -> Callable:
+    """The train transform of ``--native_decode`` or ``--device_augment``:
+    raises on its first call.  Flows that never index the train split (the
+    eval CLI) run; training from image files in those modes fails loudly
+    rather than on another transform."""
+
+    def transform(data):
+        raise NotImplementedError(
+            f"the {mode} train transform (C++ decode pool / in-step "
+            f"augment) is not ported yet; pass --native_decode False and "
+            f"--device_augment unset for the PIL train transform")
+
+    return transform

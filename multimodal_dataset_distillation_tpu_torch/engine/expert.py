@@ -1,0 +1,234 @@
+"""Bi-encoder training: the expert phase's and the synthetic-set eval's SGD.
+
+Counterpart of ``multimodal_dataset_distillation_tpu/engine/expert.py:
+34-445`` (reference ``buffer.py`` + ``epoch``).  Two SGD optimizers, image
+tower and text projection, stepped per batch exactly as the reference
+steps them (``epoch_original.py:53-57``, ``buffer.py:59-60``).  The frozen
+text encoder runs outside: batches carry cached text embeddings.
+
+Dropout and DropPath draw from one ``torch.Generator`` per trainer, seeded
+at :meth:`BiEncoderTrainer.reset`, so one seed gives one run.  Loss and
+accuracy stay on the device until the end of an epoch, which reads them
+once.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from ..models.clip_model import VLBiEncoder
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def torch_sgd(params: Iterable[torch.Tensor], lr: float,
+              momentum: float = 0.0,
+              weight_decay: float = 0.0) -> torch.optim.SGD:
+    """torch's SGD: g += wd * p, then the momentum trace (whose first value
+    is g), then p -= lr * trace; the JAX package's optax chain
+    add_decayed_weights -> trace -> scale(-lr)."""
+    return torch.optim.SGD(params, lr=lr, momentum=momentum,
+                           weight_decay=weight_decay)
+
+
+def _epoch_means(per: List[Tuple[torch.Tensor, torch.Tensor, int]]
+                 ) -> Tuple[float, float]:
+    """(sample-weighted mean loss, summed acc / samples) of an epoch's
+    batches, read from the device once."""
+    if not per:
+        return 0.0, 0.0
+    stats = torch.stack([torch.stack((loss.float(), acc.float()))
+                         for loss, acc, _ in per]).cpu().tolist()
+    num = sum(n for _, _, n in per)
+    loss_sum = sum(s[0] * n for s, (_, _, n) in zip(stats, per))
+    acc_sum = sum(s[1] for s in stats)
+    return loss_sum / max(num, 1), acc_sum / max(num, 1)
+
+
+class BiEncoderTrainer:
+    """Trains ``model`` in place, on the model's device.
+
+    ``variables`` (a state dict, or None to keep the model's weights) is
+    loaded first.  ``compute_dtype="bfloat16"`` is the fork's AMP epoch
+    (``epoch.py:59-98``): the parameters are cast inside the graph, so the
+    gradients reach the float32 masters through the cast; the image tower
+    computes in bfloat16 and the text projection in float32 from
+    bfloat16-rounded weights (flax's dtype promotion in the JAX package).
+    """
+
+    def __init__(self, model: VLBiEncoder, variables: Optional[StateDict] = None,
+                 *, lr_img: float, lr_txt: float, momentum: float = 0.0,
+                 weight_decay: float = 0.0, seed: int = 0,
+                 compute_dtype: str = "float32"):
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or "
+                             f"bfloat16")
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.compute_dtype = compute_dtype
+        self.momentum, self.weight_decay = momentum, weight_decay
+        self.reset(variables, seed=seed, lr_img=lr_img, lr_txt=lr_txt)
+
+    def reset(self, variables: Optional[StateDict], *, seed: int,
+              lr_img: Optional[float] = None,
+              lr_txt: Optional[float] = None) -> None:
+        """Re-arm as a fresh trainer: new weights (if given), zero momentum
+        traces, the generator at ``seed``, and the learning rates (runtime
+        values: one trainer serves every eval block's learned LR)."""
+        if variables is not None:
+            self.model.load_state_dict(variables)
+        self.lr_img = float(self.lr_img if lr_img is None else lr_img)
+        self.lr_txt = float(self.lr_txt if lr_txt is None else lr_txt)
+        self.reset_optimizers(self.lr_img, self.lr_txt, self.momentum,
+                              self.weight_decay)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(seed))
+
+    def reset_optimizers(self, lr_img: float, lr_txt: float,
+                         momentum: float = 0.0,
+                         weight_decay: float = 0.0) -> None:
+        """Fresh SGD at these hyperparameters (the reference's step decay
+        recreates the optimizers, buffer.py:97-102 /
+        epoch_original.py:190-192)."""
+        self.lr_img, self.lr_txt = float(lr_img), float(lr_txt)
+        self.momentum, self.weight_decay = momentum, weight_decay
+        self.opt_img = torch_sgd(self.model.image_encoder.parameters(),
+                                 self.lr_img, momentum, weight_decay)
+        self.opt_txt = torch_sgd(self.model.text_projection.parameters(),
+                                 self.lr_txt, momentum, weight_decay)
+
+    def _loss(self, images: torch.Tensor, texts: torch.Tensor):
+        kw = {"train": True, "generator": self.generator}
+        if self.compute_dtype == "float32":
+            return self.model(images, texts, **kw)
+        bf16 = torch.bfloat16
+        params = {f"image_encoder.{n}": p.to(bf16) for n, p in
+                  self.model.image_encoder.named_parameters()}
+        params.update({f"text_projection.{n}": p.to(bf16).float() for n, p in
+                       self.model.text_projection.named_parameters()})
+        return functional_call(self.model, params, (images.to(bf16), texts),
+                               kw)
+
+    def train_batch(self, images, text_feats
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One SGD step on (B, H, W, 3) images and (B, D) text features
+        (arrays or tensors); -> (loss, acc) on the device."""
+        images = torch.as_tensor(images, dtype=torch.float32,
+                                 device=self.device)
+        texts = torch.as_tensor(text_feats, dtype=torch.float32,
+                                device=self.device)
+        loss, acc = self._loss(images, texts)
+        self.opt_img.zero_grad(set_to_none=True)
+        self.opt_txt.zero_grad(set_to_none=True)
+        loss.backward()
+        self.opt_img.step()
+        self.opt_txt.step()
+        return loss.detach(), acc
+
+    def train_epoch_arrays(self, loader) -> Tuple[float, float]:
+        """One epoch over an ArrayPairLoader (synthetic-set training);
+        ``epoch`` (epoch_original.py:20-62) with distill=True."""
+        return _epoch_means([(*self.train_batch(images, texts), len(images))
+                             for images, texts in loader])
+
+    def train_epoch_captions(self, loader, caption_to_embed: Callable
+                             ) -> Tuple[float, float]:
+        """One epoch over a caption dataset loader (expert phase);
+        ``epoch`` with distill=False."""
+        return _epoch_means([
+            (*self.train_batch(batch[0], caption_to_embed(batch[1])),
+             len(batch[0])) for batch in loader])
+
+    # ---- parameter snapshots (buffer.py:67-68,94-95): registration order
+
+    def snapshot_image_params(self) -> List[np.ndarray]:
+        return [p.detach().cpu().numpy().copy()
+                for p in self.model.image_encoder.parameters()]
+
+    def snapshot_text_params(self) -> List[np.ndarray]:
+        return [p.detach().cpu().numpy().copy()
+                for p in self.model.text_projection.parameters()]
+
+
+class ParallelExpertTrainer:
+    """K independent bi-encoders trained in lockstep: each batch step
+    trains model 0, then 1, ... on its own batch.
+
+    Model ``j`` is a copy of ``model`` loaded with ``variables_list[j]``,
+    with its own optimizers and its own generator at ``seeds[j]``, so its
+    run is bit for bit that of ``BiEncoderTrainer(seed=seeds[j])`` fed the
+    same batches (the parity the JAX class's vmap promises).  The JAX
+    vmap takes XLA's conv for the grouped 3x3 sites; here every model's
+    sites stay on the kernels.
+    """
+
+    def __init__(self, model: VLBiEncoder, variables_list: Sequence[StateDict],
+                 *, lr_img: float, lr_txt: float, seeds: Sequence[int],
+                 momentum: float = 0.0, weight_decay: float = 0.0,
+                 compute_dtype: str = "float32"):
+        self.k = len(variables_list)
+        if len(seeds) != self.k:
+            raise ValueError(f"{len(seeds)} seeds for {self.k} models")
+        self.trainers = [
+            BiEncoderTrainer(copy.deepcopy(model), v, lr_img=lr_img,
+                             lr_txt=lr_txt, momentum=momentum,
+                             weight_decay=weight_decay, seed=s,
+                             compute_dtype=compute_dtype)
+            for v, s in zip(variables_list, seeds)]
+
+    def reset(self, variables_list: Sequence[StateDict], *,
+              seeds: Sequence[int], lr_img: Optional[float] = None,
+              lr_txt: Optional[float] = None) -> None:
+        """Re-arm every model as a fresh trainer would start."""
+        if len(variables_list) != self.k or len(seeds) != self.k:
+            raise ValueError(f"reset of {self.k} models with "
+                             f"{len(variables_list)} inits, {len(seeds)} "
+                             f"seeds")
+        for t, v, s in zip(self.trainers, variables_list, seeds):
+            t.reset(v, seed=s, lr_img=lr_img, lr_txt=lr_txt)
+
+    def train_batch(self, images, text_feats
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``images[j]`` (B, H, W, C) and ``text_feats[j]`` (B, D) for each
+        model j -> (K,) losses and accs on the device."""
+        out = [t.train_batch(images[j], text_feats[j])
+               for j, t in enumerate(self.trainers)]
+        return (torch.stack([loss for loss, _ in out]),
+                torch.stack([acc for _, acc in out]))
+
+    def train_epoch_captions(self, loaders, caption_to_embed: Callable
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+        """One epoch: ``loaders`` holds one batch stream per model.  -> (K,)
+        mean losses and accs, read from the device at the epoch's end."""
+        per = []
+        for batches in zip(*loaders):
+            sizes = {len(b[0]) for b in batches}
+            if len(sizes) != 1:
+                raise ValueError(
+                    f"parallel expert loaders disagree on batch size: "
+                    f"{sorted(sizes)} — all {len(batches)} streams must "
+                    f"yield identically-shaped batches each step")
+            loss, acc = self.train_batch([b[0] for b in batches],
+                                         [caption_to_embed(b[1])
+                                          for b in batches])
+            per.append((loss, acc, sizes.pop()))
+        means = [_epoch_means([(loss[j], acc[j], n) for loss, acc, n in per])
+                 for j in range(self.k)]
+        return (np.array([m[0] for m in means]),
+                np.array([m[1] for m in means]))
+
+    # ---- per-model views / snapshots ----
+
+    def model_for(self, k: int) -> VLBiEncoder:
+        return self.trainers[k].model
+
+    def snapshot_image_params(self, k: int) -> List[np.ndarray]:
+        return self.trainers[k].snapshot_image_params()
+
+    def snapshot_text_params(self, k: int) -> List[np.ndarray]:
+        return self.trainers[k].snapshot_text_params()

@@ -54,9 +54,11 @@ class VLBiEncoder(nn.Module):
         return contrastive_loss_and_acc(img, txt, FIXED_LOGIT_SCALE)
 
 
-def build_bi_encoder(cfg: Config, device="cuda") -> VLBiEncoder:
-    """Build from a :class:`Config` like the JAX ``build_bi_encoder``; the
-    grouped 3x3 convs take the kernels when ``cfg.pallas_gconv`` is set."""
+def build_bi_encoder(cfg: Config, device=None) -> VLBiEncoder:
+    """Build from a :class:`Config` like the JAX ``build_bi_encoder``, on
+    ``device`` (default ``cfg.device``, the card unless the config says
+    otherwise); the grouped 3x3 convs take the kernels when
+    ``cfg.pallas_gconv`` is set."""
     if cfg.only_has_image_projection or cfg.transfer:
         raise NotImplementedError("image projection / transfer towers come "
                                   "with a later slice")
@@ -66,7 +68,7 @@ def build_bi_encoder(cfg: Config, device="cuda") -> VLBiEncoder:
                         text_embedding=text_dim,
                         image_embedding=IMAGE_FEATURE_DIMS[cfg.image_encoder],
                         gconv=cfg.pallas_gconv)
-    return model.to(device)
+    return model.to(cfg.device if device is None else device)
 
 
 def _trunc_normal(t: torch.Tensor, fan_in: int, scale: float,

@@ -5,7 +5,8 @@ Counterpart of ``multimodal_dataset_distillation_tpu/models/zoo.py:26-105``.
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,3 +41,52 @@ class ImageTower(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.model(x.permute(0, 3, 1, 2), train, generator)
+
+
+# timm checkpoint file names as the reference's `timm.create_model(...,
+# pretrained=True)` leaves them in the torch-hub cache (networks.py:666-672);
+# the other towers' names come with their port
+TIMM_CKPT_NAMES = {"nfnet": ("nfnet_l0_ra2-45c6688d.pth",)}
+
+
+def find_local_timm_checkpoint(arch: str) -> Optional[str]:
+    """Path of a local timm checkpoint for ``arch``, or None.  Searched:
+    ``$MDD_TIMM_CKPT_<ARCH>``, ``$MDD_TIMM_CKPT``, then the torch-hub cache
+    (``~/.cache/torch/hub/checkpoints``) under the known file names.
+    Nothing is downloaded."""
+    for env in (f"MDD_TIMM_CKPT_{arch.upper()}", "MDD_TIMM_CKPT"):
+        p = os.environ.get(env)
+        if p and os.path.exists(p):
+            return p
+    hub = os.path.join(os.path.expanduser("~"), ".cache", "torch", "hub",
+                       "checkpoints")
+    for name in TIMM_CKPT_NAMES.get(arch, ()):
+        p = os.path.join(hub, name)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def load_timm_state_dict(arch: str
+                         ) -> Tuple[Optional[Dict[str, torch.Tensor]],
+                                    Optional[str]]:
+    """(state dict, path) of the local timm checkpoint for ``arch``, or
+    (None, None); a ``{"state_dict": ...}`` wrapper is unwrapped."""
+    if arch not in TIMM_CKPT_NAMES:
+        return None, None
+    path = find_local_timm_checkpoint(arch)
+    if path is None:
+        return None, None
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return sd, path
+
+
+def load_timm_image_tower(tower: ImageTower,
+                          sd: Dict[str, torch.Tensor]) -> None:
+    """Load a timm state dict into the headless tower: the network uses
+    timm's names, so it loads strictly once the classifier (``head.*``) is
+    dropped."""
+    tower.model.load_state_dict(
+        {k: v for k, v in sd.items() if not k.startswith("head.")})
