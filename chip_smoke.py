@@ -36,6 +36,17 @@ each of which raises on failure:
    around it.
 6. One ``evaluate_synset`` of that path with the kernels against the same
    on ``F.conv2d`` (TF32 off), from the same init, seeds and batches.
+7. The distill entry point: ``cli/distill.main`` at full width (NFNet-L0
+   224^2 + ProjectionHead, BERT-base random-init from the seed) on 1000
+   synthetic pairs and a 1000 x 5 test split: the caption caches through
+   the port's BERT, the init from real pairs, one buffer file of 2 experts
+   x 3 epochs written first through the port's buffer writer, 4 headline
+   outer steps (the tensor-core kernels), eval blocks of 2 parallel
+   float32 students at iterations 0 and 3 (the CUDA-core kernels), the
+   artifacts, a checkpoint at 2.  Every ``Grand_Loss`` finite;
+   ``distilled_{0,3}.npz`` read back; the checkpoint reloaded bit for bit;
+   every student's nine metrics finite and in [0, 100]; launches exactly
+   4 x phase 3's per step plus 2 x phase 5's per block at 2 students.
 
 Phase 2 also times the CUDA-core kernels in float32 (the route's dtype on
 phases 4-6) beside cuDNN's float32 call with TF32 off and on.
@@ -620,13 +631,252 @@ def compare_eval(gc, Config, syn, **kw):
     return out
 
 
-def kernel_entries(rows, launches, launches_eval):
+def distill_cli_cfg(Config, **kw):
+    """Phase 7's configuration: the distill CLI at full width (NFNet-L0 at
+    224^2 + ProjectionHead, BERT-base random-init from the seed), the
+    headline step (nq=100, mb=100, syn_steps=8, bf16, forward-HVP, the
+    kernels), 4 outer steps with eval blocks of 2 parallel students at
+    iterations 0 and 3, a checkpoint at 2, on 1000 synthetic train pairs
+    and a 1000 x 5 test split (Flickr30K's test shape)."""
+    base = dict(dataset="synthetic", synthetic_size=1000,
+                synthetic_test_size=1000, image_encoder="nfnet",
+                image_size=224, text_encoder="bert",
+                text_encoder_config="base", text_pretrained=False,
+                image_pretrained=False, num_queries=100, mini_batch_size=100,
+                syn_steps=8, expert_epochs=1, lr_img=1000.0, lr_txt=1000.0,
+                lr_lr=1e-2, lr_teacher_img=0.1, lr_teacher_txt=0.1,
+                inner_dtype="bfloat16", hvp_mode="forward", pallas_gconv=True,
+                Iteration=3, eval_it=3, num_eval=2, epoch_eval_train=1,
+                batch_train=128, batch_size_test=128, k_test=128,
+                parallel_eval=True, std=True, draw=True, ckpt_it=2,
+                disable_wandb=True, seed=0, name="phase7",
+                buffer_path="buffers", save_dir="logged_files")
+    return Config(**{**base, **kw})
+
+
+def write_buffers(cfg, n_experts: int = 2, epochs: int = 2) -> str:
+    """One buffer file pair of ``n_experts`` trajectories of ``epochs``+1
+    snapshots each, through the port's write side: snapshots from the
+    seeded init with skipinit gains at 0.2 +- 0.05 (as phase 3), then small
+    seeded steps.  -> the buffer directory."""
+    from multimodal_dataset_distillation_tpu_torch.engine.buffer_io import (
+        save_trajectories_pt)
+    from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
+        build_bi_encoder, init_bi_encoder)
+
+    model = init_bi_encoder(build_bi_encoder(cfg, device="cpu"), cfg.seed)
+    rng = np.random.RandomState(cfg.seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("skipinit_gain"):
+                p.fill_(0.2 + 0.05 * rng.randn())
+    os.makedirs(cfg.buffer_path, exist_ok=True)
+    for kind, tower in (("img", model.image_encoder),
+                        ("txt", model.text_projection)):
+        trajs = []
+        for _ in range(n_experts):
+            snap = [p.detach().numpy().copy() for p in tower.parameters()]
+            traj = [snap]
+            for _ in range(epochs):
+                traj.append([x + np.float32(0.01) * np.asarray(
+                    rng.randn(*x.shape), np.float32) for x in traj[-1]])
+            trajs.append(traj)
+        save_trajectories_pt(os.path.join(
+            cfg.buffer_path, f"{kind}_replay_buffer_0.pt"), trajs)
+    return cfg.buffer_path
+
+
+def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
+    """Phase 7: ``cli/distill.main`` in a temporary working directory;
+    launch counters zeroed just before and read just after.  Times on the
+    host clock, by wrapping the CLI's calls: BERT's encodes (each ends in a
+    copy to the host), set-up (from the call to the first eval block) and
+    its calls, the outer steps between the eval blocks (from step 1's call
+    to the read of step 2's result at the second block), and each eval
+    block (from its read of the synthetic set to its last artifact) and
+    its calls."""
+    from multimodal_dataset_distillation_tpu_torch.cli import distill as cli
+    from multimodal_dataset_distillation_tpu_torch.cli.eval_distilled import (
+        load_distilled)
+    from multimodal_dataset_distillation_tpu_torch.engine import distill as eng
+    from multimodal_dataset_distillation_tpu_torch.engine.checkpoint import (
+        load_distill_checkpoint)
+    from multimodal_dataset_distillation_tpu_torch.models import bert
+    from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
+        build_bi_encoder)
+
+    cfg = distill_cli_cfg(Config, **kw)
+    spans = []   # (label, start, end, number of captions or None)
+    rec = {}
+    now = time.perf_counter
+
+    def wrap(obj, name):
+        fn = getattr(obj, name)
+
+        def run(*a, **k):
+            t = now()
+            out = fn(*a, **k)
+            spans.append((name, t, now(), len(a[1]) if name == "encode"
+                          else None))
+            return out
+        setattr(obj, name, run)
+        return obj, name, fn
+
+    def save_ckpt(path, distiller, it, **k):   # the state as it is saved
+        rec["ckpt"] = {f: (getattr(distiller.state, f).clone()
+                           if f != "mom_lr" else
+                           tuple(t.clone() for t in distiller.state.mom_lr))
+                       for f in ("image_syn", "text_syn", "syn_lr_img",
+                                 "syn_lr_txt", "mom_img", "mom_txt",
+                                 "mom_lr")}
+        rec["ckpt_rng"] = distiller.rng.get_state().clone()
+        return saved_ckpt(path, distiller, it, **k)
+
+    saved = [wrap(bert.TextEncoder, "encode"),
+             wrap(bert, "init_bert"), wrap(bert, "_try_hf_tokenizer"),
+             wrap(eng.Distiller, "step_traj"),
+             wrap(eng.Distiller, "syn_arrays")]
+    saved += [wrap(cli, name) for name in (
+        "get_dataset", "make_text_encoder", "get_images_texts",
+        "init_bi_encoder", "build_bi_encoder", "Distiller", "ExpertCycler",
+        "evaluate_synset_parallel", "save_visualizations")]
+    saved_ckpt = cli.save_distill_checkpoint
+    saved.append((cli, "save_distill_checkpoint", saved_ckpt))
+    cli.save_distill_checkpoint = save_ckpt
+    cwd = os.getcwd()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            t = now()
+            write_buffers(cfg)
+            buffers_s = now() - t
+            torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gc.reset_launches()
+            t0 = now()
+            distiller, history = cli.main(cfg)
+            torch.cuda.synchronize()
+            wall = now() - t0
+            launches = dict(gc.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            run = os.path.join(cfg.save_dir, cfg.dataset, cfg.name)
+            with open(os.path.join(cfg.save_dir, f"{cfg.name}.jsonl")) as f:
+                losses = {r["step"]: r["Grand_Loss"] for r in map(json.loads, f)
+                          if "Grand_Loss" in r}
+            student = cli._student_cfg(cfg)
+            model = build_bi_encoder(student)
+            sets = {}
+            for it in (0, cfg.Iteration):
+                img, txt, payload = load_distilled(
+                    os.path.join(run, f"distilled_{it}.npz"))
+                sets[it] = (img.shape, txt.shape, float(payload["syn_lr_img"]))
+                if not (img.shape == (cfg.num_queries, cfg.image_size,
+                                      cfg.image_size, 3)
+                        and txt.shape == (cfg.num_queries,
+                                          model.text_embedding)
+                        and np.isfinite(img).all() and np.isfinite(txt).all()):
+                    raise AssertionError(f"distilled_{it}.npz: {sets[it]}")
+            # the checkpoint reloads bit for bit into a fresh Distiller
+            fresh = eng.Distiller(student, model, np.zeros_like(img),
+                                  np.zeros_like(txt), device=cfg.device)
+            it_ckpt = load_distill_checkpoint(
+                os.path.join(run, f"distill_ckpt_{cfg.ckpt_it}.pt"), fresh)
+            same = it_ckpt == cfg.ckpt_it and torch.equal(
+                fresh.rng.get_state(), rec["ckpt_rng"])
+            for f, want in rec["ckpt"].items():
+                got = getattr(fresh.state, f)
+                pairs = zip(got, want) if f == "mom_lr" else [(got, want)]
+                same = same and all(torch.equal(a, b) for a, b in pairs)
+            if not same:
+                raise AssertionError("distill_ckpt_2.pt does not reload bit "
+                                     "for bit")
+            del fresh, distiller
+    finally:
+        os.chdir(cwd)
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+    if sorted(losses) != list(range(cfg.Iteration + 1)) or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"Grand_Loss per iteration: {losses}")
+    if [it for it, _ in history] != [0, cfg.Iteration]:
+        raise AssertionError(f"eval blocks at {[it for it, _ in history]}")
+    for it, results in history:
+        if len(results) != cfg.num_eval:
+            raise AssertionError(f"it {it}: {len(results)} eval results")
+        for j, val in enumerate(results):
+            if tuple(val) != METRIC_KEYS or not all(
+                    math.isfinite(v) and 0.0 <= v <= 100.0
+                    for v in val.values()):
+                raise AssertionError(f"it {it} student {j}: bad metrics {val}")
+    steps = cfg.Iteration + 1
+    per_block = eval_launches(cfg, cfg.num_queries)
+    want = {k: steps * MAIN_PATH_PER_STEP.get(k, 0) + 2 * per_block[k]
+            for k in KERNELS}
+    if launches != want:
+        raise AssertionError(f"distill CLI launches {launches}, expected "
+                             f"{want}")
+    (_, a0, a1, n_test), (_, b0, b1, n_train) = [
+        sp for sp in spans if sp[0] == "encode"][:2]
+    t_test, t_train = a1 - a0, b1 - b0
+    syn_t = [(t, u) for name, t, u, _ in spans if name == "syn_arrays"]
+    viz_t = [u for name, _, u, _ in spans if name == "save_visualizations"]
+    step_t = sorted(t for name, t, _, _ in spans if name == "step_traj")
+
+    def by_label(lo, hi):
+        """Seconds per wrapped call inside [lo, hi] (nested calls are also
+        counted inside their callers: the 100-caption encode inside
+        get_images_texts, the inits inside build and the trainer)."""
+        out = {}
+        for name, t, u, _ in spans:
+            if lo <= t and u <= hi and name not in ("syn_arrays",):
+                out[name] = out.get(name, 0.0) + (u - t)
+        return out
+
+    out = {
+        "wall_s": wall, "buffers_write_s": buffers_s,
+        "setup_s": syn_t[0][0] - t0,
+        "setup_by_call_s": by_label(t0, syn_t[0][0]),
+        "bert_test_cache": {"captions": n_test, "s": t_test,
+                            "captions_per_s": n_test / t_test},
+        "bert_train_cache": {"captions": n_train, "s": t_train,
+                             "captions_per_s": n_train / t_train},
+        # steps 1 and 2: from step 1's call to the read of the set at the
+        # second eval block, which waits for step 2
+        "cli_steps_per_s": 2 / (syn_t[1][1] - step_t[1]),
+        "step_call_intervals_s": [u - t for t, u in zip(
+            step_t, step_t[1:3] + [syn_t[1][1]])],
+        "phase3_steps_per_s": phase3_steps_per_s,
+        "eval_block_s": [v - t for (t, _), v in zip(syn_t, viz_t)],
+        "eval_block_by_call_s": [by_label(t, v) for (t, _), v in
+                                 zip(syn_t, viz_t)],
+        "max_memory_allocated_gib": peak, "launches": launches,
+        "grand_loss": [losses[i] for i in sorted(losses)],
+        "distilled": {str(k): v for k, v in sets.items()},
+        "results": [[{k: float(v) for k, v in r.items()} for r in res]
+                    for _, res in history]}
+    print(f"distill CLI: BERT-{cfg.text_encoder_config} test cache "
+          f"{n_test} captions in "
+          f"{t_test:.2f} s ({n_test / t_test:.0f}/s), train cache {n_train} "
+          f"in {t_train:.2f} s ({n_train / t_train:.0f}/s); set-up "
+          f"{out['setup_s']:.1f} s; {out['cli_steps_per_s']:.4f} outer "
+          f"steps/s through the CLI against {phase3_steps_per_s:.4f} through "
+          f"the Distiller API; eval blocks "
+          f"{', '.join(f'{v:.1f}' for v in out['eval_block_s'])} s; peak "
+          f"{peak:.2f} GiB", flush=True)
+    print("distill CLI: " + json.dumps(out), flush=True)
+    return out
+
+
+def kernel_entries(rows, launches, launches_eval, launches_cli):
     """One entry per kernel, summed over one tower pass (19 sites, mb=100),
     in the dtype of the paths that launch it: float32 for the CUDA-core
     kernels (phases 4-6; their bf16 times beside, as ``*_bf16``), bf16 for
     the tensor-core ones.  ``launches``: of the tensor-core kernels phase
     3's (the bf16 main path), of the CUDA-core ones phase 4's (the float32
-    outer step); ``launches_eval``: phase 5's (the eval path)."""
+    outer step); ``launches_eval``: phase 5's (the eval path);
+    ``launches_cli``: phase 7's (the distill CLI, both routes)."""
     def total(key):
         return sum(r["sites"] * r[key] for r in rows)
 
@@ -646,6 +896,7 @@ def kernel_entries(rows, launches, launches_eval):
             "dtype": "float32" if sfx else "bfloat16",
             "launches": launches[name],
             "launches_eval": launches_eval[name],
+            "launches_cli": launches_cli[name],
             "max_abs_err": err(kind, f"{route}{sfx or '_bf16'}"),
             "ms": total(f"{kind}_{route}{sfx}_ms"), "ms_cold": cold,
             "plain_ms": total(f"{kind}_plain{sfx}_ms"),
@@ -708,11 +959,14 @@ def main() -> int:
     ev = eval_path(gc, Config, syn)
     torch.cuda.empty_cache()
     compare_eval(gc, Config, syn)
+    torch.cuda.empty_cache()
+    cli = distill_cli_path(gc, Config, path["steps_per_s"])
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
     print(json.dumps({"kernels": kernel_entries(rows, launches,
-                                                ev["launches"])}),
+                                                ev["launches"],
+                                                cli["launches"])}),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from .pipeline import Loader
 from .transforms import (
     make_test_transform,
     make_train_transform,
+    make_train_transform_native,
     unported_train_transform,
 )
 
@@ -35,13 +36,14 @@ from .transforms import (
 def create_dataset(cfg: Config, min_scale: float = 0.5):
     """(train, val, test) with reference transforms (data/__init__.py:193-227).
 
-    Under ``device_augment`` or ``native_decode`` (the ``Config`` default)
-    the train transform is :func:`~.transforms.unported_train_transform`,
-    which raises when a train item is read."""
+    ``native_decode`` (the ``Config`` default) installs the C++ decode
+    pool's train transform; under ``device_augment`` the train transform is
+    :func:`~.transforms.unported_train_transform`, which raises when a train
+    item is read."""
     if cfg.device_augment:
         t_train = unported_train_transform("device_augment")
     elif cfg.native_decode:
-        t_train = unported_train_transform("native_decode")
+        t_train = make_train_transform_native(cfg.image_size, min_scale)
     else:
         t_train = make_train_transform(cfg.image_size, min_scale)
     t_test = make_test_transform(cfg.image_size)

@@ -1,26 +1,24 @@
-"""Text-embedding cache (the reference's ``load_or_process_file``).
+"""Text-embedding precompute and cache (textprocess / textprocess_train).
 
-The port's own copy of the cache side of ``multimodal_dataset_distillation_
-tpu/data/textcache.py`` (reference ``data/__init__.py:153-191`` +
-``utils.py:872-893``): the frozen text encoder's outputs over the test
+The port's own copy of ``multimodal_dataset_distillation_tpu/data/
+textcache.py`` (reference ``data/__init__.py:153-191`` +
+``utils.py:872-893``): the frozen text encoder's CLS outputs over the test
 captions live in ``{dataset}_{text_encoder}_text_embed.npz`` (train
 captions: ``..._train_text_embed.npz``) under key ``bert_test_embed``, in
 the current directory; computed if missing, then loaded.  The file names
-are the JAX package's, so a cache it wrote is read here.
-
-The compute side needs the text tower (``models/bert.py``), which is not
-ported yet: :func:`textprocess` and :func:`textprocess_train` raise
-``NotImplementedError`` naming the file to make with the JAX package.
+and key are the JAX package's, so a cache written by either package is
+read by the other.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
 from ..config import Config
+from ..models.bert import TextEncoder
 
 
 def cache_name(cfg: Config, file_type: str, cache_dir: str = ".") -> str:
@@ -30,21 +28,39 @@ def cache_name(cfg: Config, file_type: str, cache_dir: str = ".") -> str:
                         f"{cfg.dataset}_{cfg.text_encoder}_{suffix}.npz")
 
 
-def _no_text_tower(fname: str):
-    raise NotImplementedError(
-        f"{fname} is missing, and the port has no text encoder yet "
-        f"(models/bert.py comes with a later slice): write it with the JAX "
-        f"package's data/textcache.py, or copy it here")
+def make_text_encoder(cfg: Config) -> TextEncoder:
+    """The frozen BERT tower on ``cfg.device`` (networks.py:693-737)."""
+    if cfg.text_encoder == "bert":
+        return TextEncoder(variant=cfg.text_encoder_config,
+                           pretrained=cfg.text_pretrained, seed=cfg.seed,
+                           device=cfg.device)
+    if cfg.text_encoder == "clip":
+        raise NotImplementedError(
+            "--text_encoder=clip: the CLIP text tower (models/clip_text.py) "
+            "is not ported yet (ROADMAP A, item 16)")
+    raise NotImplementedError(f"Unsupported text encoder: {cfg.text_encoder}")
 
 
-def textprocess(cfg: Config, testloader, cache_dir: str = ".") -> str:
-    """Encode the test-split captions -> npz (needs the text tower)."""
-    _no_text_tower(cache_name(cfg, "text", cache_dir))
+def textprocess(cfg: Config, testloader,
+                encoder: Optional[TextEncoder] = None,
+                cache_dir: str = ".") -> str:
+    """Encode the test-split captions -> npz; returns the file name."""
+    encoder = encoder or make_text_encoder(cfg)
+    embed = encoder.encode(testloader.dataset.text, chunk_size=1000)
+    fname = cache_name(cfg, "text", cache_dir)
+    np.savez(fname, bert_test_embed=embed)
+    return fname
 
 
-def textprocess_train(cfg: Config, texts, cache_dir: str = ".") -> str:
-    """Encode all train captions -> npz (needs the text tower)."""
-    _no_text_tower(cache_name(cfg, "train", cache_dir))
+def textprocess_train(cfg: Config, texts: Sequence[str],
+                      encoder: Optional[TextEncoder] = None,
+                      cache_dir: str = ".") -> str:
+    """Encode all train captions -> npz; returns the file name."""
+    encoder = encoder or make_text_encoder(cfg)
+    embed = encoder.encode(list(texts), chunk_size=2000)
+    fname = cache_name(cfg, "train", cache_dir)
+    np.savez(fname, bert_test_embed=embed)
+    return fname
 
 
 def load_or_process_file(file_type: str, process_fn: Callable, cfg: Config,

@@ -6,20 +6,24 @@ transforms.py:24-94``, the reference's torchvision pipelines
 0.5-1.0) + HFlip + RandAugment(2,5, 10-op list) + CLIP normalization; test
 = square bicubic resize + CLIP normalization.
 
-The JAX package's two other train transforms, over raw file bytes through
-the C++ decode pool (``native_decode``) and raw crops for the in-step
-augment (``device_augment``), are not ported yet:
-:func:`unported_train_transform` stands in for them and raises when called.
+:func:`make_train_transform_native` (``:136-167`` there) is the
+``native_decode`` train transform over raw file bytes through the C++
+decode pool (:mod:`..native`).  The raw-crop transform of the in-step
+augment (``device_augment``, ``make_train_transform_raw`` there) is not
+ported yet: :func:`unported_train_transform` stands in for it and raises
+when called.
 """
 
 from __future__ import annotations
 
+import io
 import math
 from typing import Callable, Tuple
 
 import numpy as np
 from PIL import Image
 
+from .. import native
 from ..ops.randaugment import VL_AUGS, RandomAugment
 from ..utils.augrng import get as _rng
 
@@ -97,16 +101,45 @@ def make_test_transform(image_size: int = 224) -> Callable:
     return transform
 
 
+def make_train_transform_native(image_size: int = 224,
+                                min_scale: float = 0.5) -> Callable:
+    """Train transform over raw file *bytes*: the C++ pool's decode + crop +
+    resize + flip (GIL-free, DCT-scaled), then RandAugment + normalize.
+    PIL input, a non-JPEG, or a decode the pool fails takes the PIL path
+    (:func:`make_train_transform`).  Same sampling distributions as that
+    path; bilinear against bicubic resampling is the one difference."""
+    aug = RandomAugment(2, 5, isPIL=True, augs=VL_AUGS)
+    pil_path = make_train_transform(image_size, min_scale)
+
+    def transform(data) -> np.ndarray:
+        if isinstance(data, Image.Image):
+            return pil_path(data)
+        if native.get_fastimage() is not None and native.is_jpeg(data):
+            dims = native.read_dims(data)
+            if dims is not None:
+                x, y, cw, ch = sample_crop_params(
+                    dims[0], dims[1], scale=(min_scale, 1.0))
+                flip = bool(_rng().random_sample() < 0.5)
+                out, failed = native.decode_batch(
+                    [(data, (x, y, cw, ch), flip)], image_size, n_threads=1)
+                if not failed:
+                    img = aug(Image.fromarray(out[0]))
+                    return normalize(np.asarray(img))
+        return pil_path(Image.open(io.BytesIO(data)).convert("RGB"))
+
+    transform.accepts_bytes = True
+    return transform
+
+
 def unported_train_transform(mode: str) -> Callable:
-    """The train transform of ``--native_decode`` or ``--device_augment``:
-    raises on its first call.  Flows that never index the train split (the
-    eval CLI) run; training from image files in those modes fails loudly
-    rather than on another transform."""
+    """The train transform of ``--device_augment``: raises on its first
+    call.  Flows that never index the train split (the eval CLI) run;
+    training in that mode fails loudly rather than on another transform."""
 
     def transform(data):
         raise NotImplementedError(
-            f"the {mode} train transform (C++ decode pool / in-step "
-            f"augment) is not ported yet; pass --native_decode False and "
-            f"--device_augment unset for the PIL train transform")
+            f"the {mode} train transform (raw crops for the in-step "
+            f"augment, ops/randaugment_device.py) is not ported yet; leave "
+            f"--device_augment unset")
 
     return transform

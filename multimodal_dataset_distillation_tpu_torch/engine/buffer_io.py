@@ -1,7 +1,10 @@
-"""Expert-trajectory buffers, read side.
+"""Expert-trajectory buffers: read and write.
 
 Counterpart of ``multimodal_dataset_distillation_tpu/engine/buffer_io.py``
-(``:56-63, 97-132, 208-233`` there).  Two formats:
+(``:37-206, 208-233`` there).  A snapshot is the list of a tower's
+per-parameter arrays in ``module.parameters()`` order and torch layouts
+(what ``BiEncoderTrainer.snapshot_*_params`` returns); a trajectory is a
+list of snapshots.  Two formats:
 
 * ``.npz``: the stacked flat trajectory ``(epochs+1, P)`` in the JAX
   package's ravel order, remapped here to the module's flat order
@@ -12,20 +15,81 @@ Counterpart of ``multimodal_dataset_distillation_tpu/engine/buffer_io.py``
   Each snapshot's shape signature is checked against the module first, so
   a file in another order is refused instead of read permuted.
 
-Identifying the JAX package's native-order ``.pt`` files comes with a later
-slice, as does writing.
+Writing keeps each format's order, so the JAX ``load_buffer`` reads what
+this module writes: ``.npz`` in JAX ravel order (:func:`~..models.convert.
+flat_to_jax`), ``.pt`` in registration order (the reference order the JAX
+package's codec identifies).  Identifying the JAX package's native-order
+``.pt`` files comes with a later slice.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..models.convert import flat_from_jax
+from ..models.convert import flat_from_jax, flat_to_jax
+
+
+def flatten_snapshot(snapshot: Sequence) -> np.ndarray:
+    """Snapshot -> flat float32 vector in this package's order."""
+    return np.concatenate([np.asarray(x, np.float32).reshape(-1)
+                           for x in snapshot])
+
+
+def stack_trajectory(trajectory: Sequence[Sequence]) -> np.ndarray:
+    """List of snapshots -> (epochs+1, P) float32."""
+    return np.stack([flatten_snapshot(s) for s in trajectory])
+
+
+def save_trajectory_npz(path: str, trajectory: Sequence[Sequence],
+                        template: nn.Module) -> None:
+    """The stacked trajectory in the JAX package's ravel order."""
+    np.savez(path, trajectory=flat_to_jax(stack_trajectory(trajectory),
+                                          template))
+
+
+def save_trajectories_pt(path: str,
+                         trajectories: Sequence[Sequence[Sequence]]) -> None:
+    """``torch.save`` of a list of trajectories of per-parameter tensors, in
+    registration order (the reference container, buffer.py:104-115)."""
+    # np.array, not ascontiguousarray: the latter promotes 0-d parameters
+    # (skipinit gains) to (1,) and breaks the shape signature readers check
+    torch.save([[[torch.from_numpy(np.array(x, copy=True)) for x in snap]
+                 for snap in traj] for traj in trajectories], path)
+
+
+def next_free_index(save_dir: str) -> int:
+    """First ``n`` with neither ``img_replay_buffer_{n}.pt`` nor ``.npz``
+    present (buffer.py:106-108)."""
+    n = 0
+    while any(os.path.exists(os.path.join(
+            save_dir, f"img_replay_buffer_{n}{ext}")) for ext in (".pt", ".npz")):
+        n += 1
+    return n
+
+
+def save_expert(save_dir: str, img_trajectory: Sequence[Sequence],
+                txt_trajectory: Sequence[Sequence], img_template: nn.Module,
+                txt_template: nn.Module, write_pt: bool = True,
+                write_npz: bool = True, index: Optional[int] = None) -> int:
+    """Save one expert's (image, text) trajectories as
+    ``{img,txt}_replay_buffer_{n}.{pt,npz}``; -> the index ``n`` used (the
+    next free one unless ``index`` is given).  The templates (the student's
+    towers) give the ravel order of the ``.npz`` files."""
+    os.makedirs(save_dir, exist_ok=True)
+    n = next_free_index(save_dir) if index is None else int(index)
+    for kind, traj, template in (("img", img_trajectory, img_template),
+                                 ("txt", txt_trajectory, txt_template)):
+        stem = os.path.join(save_dir, f"{kind}_replay_buffer_{n}")
+        if write_pt:
+            save_trajectories_pt(stem + ".pt", [traj])
+        if write_npz:
+            save_trajectory_npz(stem + ".npz", traj, template)
+    return n
 
 
 def load_trajectory_npz(path: str) -> np.ndarray:
@@ -77,7 +141,15 @@ def discover_buffers(expert_dir: str) -> Tuple[List[str], List[str]]:
 
 def load_buffer(path: str, template: nn.Module) -> List[np.ndarray]:
     """One buffer file -> list of flat trajectories (E+1, P) in
-    ``template``'s order."""
+    ``template``'s order.  An ``.npz`` of another width raises the JAX
+    distill CLI's ``ValueError`` (buffers written for another tower)."""
     if path.endswith(".npz"):
-        return [flat_from_jax(load_trajectory_npz(path), template)]
+        traj = load_trajectory_npz(path)
+        size = sum(p.numel() for p in template.parameters())
+        if traj.shape[-1] != size:
+            raise ValueError(
+                f"expert buffer param size {traj.shape[-1]} != student flat "
+                f"size {size} — buffers were written for a different image "
+                f"encoder or config")
+        return [flat_from_jax(traj, template)]
     return load_trajectories_pt(path, template)

@@ -1,7 +1,7 @@
 """Bi-trajectory distillation engine: the outer distillation step.
 
 Counterpart of ``multimodal_dataset_distillation_tpu/engine/distill.py``
-(``:54-717, 724-938, 989-1027`` there).  Per outer step: start a student
+(``:54-1027`` there).  Per outer step: start a student
 at epoch ``t`` of an expert trajectory, take ``syn_steps`` SGD steps on
 minibatches of the synthetic data, and minimize
 
@@ -36,6 +36,7 @@ step and tower, so the Function's recompute redraws the same masks.
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -150,6 +151,8 @@ class Distiller:
             mom_lr=(torch.zeros_like(lr_i), torch.zeros_like(lr_t)))
         #: host generator of the per-inner-step dropout seeds
         self.rng = torch.Generator().manual_seed(cfg.seed)
+        #: iteration the distill CLI's NaN bailout stopped at (None: none)
+        self.nan_bailout_it: Optional[int] = None
 
     # -- the inner loss --------------------------------------------------
 
@@ -333,21 +336,37 @@ class Distiller:
 # ---------------------------------------------------------------------------
 
 class ExpertCycler:
-    """Shuffle buffer files, walk trajectories, sample start epochs.
+    """Shuffle buffer files, walk trajectories, sample start epochs, and
+    serve the trajectories on the device.
 
     The JAX package's cursor walk and random draws, so one seed visits the
     same (file, expert, start) sequence in both packages.  Trajectories are
     read in the templates' flat order (:func:`~.buffer_io.load_buffer`).
-    The bounded device cache with prefetch, and ``load_all``, come in a
-    later slice.
+
+    * ``load_all`` (--load_all): every buffer file is read once into host
+      memory, keyed by file, and device copies stay cached across files.
+    * A bounded cache of device copies, ``device_cache_cap`` trajectories
+      (--traj_cache_cap; <= 0 disables it).  The walk is cyclic, where LRU
+      misses every time once more trajectories rotate than fit; eviction is
+      therefore most-recent-excluding-the-newest: the first cap-1 stay and
+      one slot rotates ((cap-1)/N hits for N > cap, all hits for N <= cap).
+    * One-step prefetch (--traj_prefetch, cap >= 2): after the cursor
+      moves, the next trajectory's host->device copy starts from pinned
+      host memory on a side CUDA stream while the current outer step runs;
+      the consumer's stream waits on the copy's event.  Cache plus
+      in-flight copies stay within the cap.  On a CPU device the copy is
+      made at once.
     """
 
     def __init__(self, img_files: Sequence[str], txt_files: Sequence[str],
                  max_start_epoch: int, expert_epochs: int,
                  img_template: nn.Module, txt_template: nn.Module,
                  max_files: Optional[int] = None, seed: int = 0,
-                 max_experts: Optional[int] = None):
+                 max_experts: Optional[int] = None, load_all: bool = False,
+                 device_cache_cap: int = 4, prefetch: bool = True,
+                 device="cuda"):
         self.img_template, self.txt_template = img_template, txt_template
+        self.device = torch.device(device)
         self.rng = np.random.RandomState(seed)
         if max_files:
             img_files = list(img_files)[:max_files]
@@ -359,30 +378,48 @@ class ExpertCycler:
         self.max_start_epoch = max_start_epoch
         self.expert_epochs = expert_epochs
         self.max_experts = max_experts
+        self._all: Optional[Dict[str, Tuple[list, list]]] = None
+        if load_all:
+            self._all = {i: self._read(i, t)
+                         for i, t in zip(self.img_files, self.txt_files)}
+        self._cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self._cache_cap = device_cache_cap
+        self._pending: Dict[tuple, tuple] = {}
+        self._prefetch = prefetch and device_cache_cap >= 2
+        self._stream = None
         self._shuffle()
         self.file_idx = 0
         self.expert_idx = 0
         self._load_current()
 
     def _read(self, img_path: str, txt_path: str):
-        def trim(buf):
+        def trim(buf):  # --max_experts (distill.py:258-260)
             return buf[: self.max_experts] if self.max_experts else buf
 
         return (trim(load_buffer(img_path, self.img_template)),
                 trim(load_buffer(txt_path, self.txt_template)))
 
     def _shuffle(self):
+        """shuffle_files (distill.py:79-87): one permutation, both lists."""
         perm = self.rng.permutation(len(self.img_files))
         self.img_files = [self.img_files[i] for i in perm]
         self.txt_files = [self.txt_files[i] for i in perm]
 
     def _load_current(self):
+        if self._all is not None:
+            self.img_buffer, self.txt_buffer = self._all[
+                self.img_files[self.file_idx]]
+            return  # the host arrays are stable: device copies stay cached
         self.img_buffer, self.txt_buffer = self._read(
             self.img_files[self.file_idx], self.txt_files[self.file_idx])
+        self._cache.clear()
 
     def _advance(self) -> Tuple[np.ndarray, np.ndarray, int]:
+        """-> (img_traj (T, P), txt_traj (T, Pt), start_epoch); walks the
+        expert and file cursors as distill.py:450-465."""
         img_traj = self.img_buffer[self.expert_idx]
         txt_traj = self.txt_buffer[self.expert_idx]
+        self._last_key = (self.img_files[self.file_idx], self.expert_idx)
         self.expert_idx += 1
         if self.expert_idx == len(self.img_buffer):
             self.expert_idx = 0
@@ -404,18 +441,119 @@ class ExpertCycler:
         return (img_traj[start], txt_traj[start],
                 img_traj[tgt], txt_traj[tgt], start)
 
-    def next_segment_device(self, device="cuda"):
-        """-> (img_traj, txt_traj, start) as float32 tensors on ``device``,
-        for :meth:`Distiller.step_traj`."""
+    def _put(self, img: np.ndarray, txt: np.ndarray) -> tuple:
+        return tuple(torch.as_tensor(a, dtype=torch.float32,
+                                     device=self.device) for a in (img, txt))
+
+    def _put_async(self, img: np.ndarray, txt: np.ndarray) -> tuple:
+        """-> (device tensors, pinned host copies, copy event)."""
+        if self.device.type != "cuda":
+            return self._put(img, txt), (), None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        hosts = tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                      .pin_memory() for a in (img, txt))
+        with torch.cuda.stream(self._stream):
+            devs = tuple(h.to(self.device, non_blocking=True) for h in hosts)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        return devs, hosts, event
+
+    def _claim(self, pending: tuple) -> tuple:
+        """A prefetched pair, ordered before the consumer's later work."""
+        devs, _, event = pending
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in devs:  # allocated on the side stream, used on this one
+                t.record_stream(stream)
+        return devs
+
+    def next_segment_device(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """-> (img_traj, txt_traj, start) as float32 tensors on the device,
+        for :meth:`Distiller.step_traj`; cached per (file, expert)."""
         img_traj, txt_traj, start = self._advance()
-        return (torch.as_tensor(img_traj, dtype=torch.float32, device=device),
-                torch.as_tensor(txt_traj, dtype=torch.float32, device=device),
-                start)
+        key = self._last_key
+        if self._cache_cap <= 0:
+            return (*self._put(img_traj, txt_traj), start)
+        # a pending copy of another key has no consumer (the cursor moved
+        # without us, e.g. a checkpoint restore): drop it
+        for stale in [k for k in self._pending if k != key]:
+            self._pending.pop(stale)
+        hit = self._cache.get(key)
+        if hit is None:
+            pending = self._pending.pop(key, None)
+            hit = (self._claim(pending) if pending is not None
+                   else self._put(img_traj, txt_traj))
+            self._cache[key] = hit
+            while len(self._cache) > self._cache_cap:
+                victims = [k for k in self._cache if k != key]
+                self._cache.pop(victims[-1])
+        self._maybe_prefetch(key)
+        return hit[0], hit[1], start
+
+    def _maybe_prefetch(self, current_key) -> None:
+        """Start the copy of the trajectory the cursor now points at,
+        keeping cache + in-flight <= cap without evicting the one in use or
+        the incoming one; skip when no such victim exists."""
+        if not self._prefetch:
+            return
+        nxt = (self.img_files[self.file_idx], self.expert_idx)
+        if nxt in self._cache or nxt in self._pending:
+            return
+        while len(self._cache) + len(self._pending) >= self._cache_cap:
+            victims = [k for k in self._cache if k not in (current_key, nxt)]
+            if not victims:
+                return
+            self._cache.pop(victims[-1])
+        self._pending[nxt] = self._put_async(self.img_buffer[self.expert_idx],
+                                             self.txt_buffer[self.expert_idx])
+
+    def close(self) -> None:
+        """Drop the device copies and any copy in flight."""
+        self._pending.clear()
+        self._cache.clear()
 
 
 # ---------------------------------------------------------------------------
 # synthetic-data initialization (distill_original.py:65-86,138-148)
 # ---------------------------------------------------------------------------
+
+def get_images_texts(n: int, dataset, text_encoder,
+                     rng: Optional[np.random.RandomState] = None,
+                     num_workers: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """``n`` random (transformed image, caption CLS embedding) pairs.
+
+    Indices and per-item augment seeds are drawn from ``rng`` exactly as the
+    JAX package draws them; each item's augment draws come from its own
+    seeded thread-local RNG (:mod:`..utils.augrng`), so the result is the
+    same for any ``num_workers`` (a thread pool; decode releases the GIL in
+    the C++ pool and in PIL)."""
+    from ..utils import augrng
+
+    rng = rng or np.random
+    idx = rng.permutation(len(dataset))[:n]
+    seeds = rng.randint(0, 2**31 - 1, size=len(idx))
+
+    def fetch(args):
+        i, s = args
+        augrng.seed_item(s)
+        try:
+            return dataset[int(i)]
+        finally:
+            augrng.clear()
+
+    if num_workers > 0:
+        import concurrent.futures as cf
+
+        with cf.ThreadPoolExecutor(max_workers=num_workers) as ex:
+            items = list(ex.map(fetch, zip(idx, seeds)))
+    else:
+        items = [fetch(a) for a in zip(idx, seeds)]
+    images = np.stack([it[0] for it in items])
+    texts = text_encoder.encode([it[1] for it in items])
+    return images.astype(np.float32), texts.astype(np.float32)
+
 
 # per-channel stats of CLIP-normalized natural images
 PIX_NOISE_MEAN = np.array([-0.0626, -0.0221, 0.0680], np.float32)

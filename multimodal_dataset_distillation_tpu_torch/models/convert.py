@@ -14,6 +14,8 @@ and ``models/torch_order.py`` there).
 * :func:`flat_from_jax` / :func:`flat_to_jax` map a JAX ravel-order flat
   vector (``.npz`` buffers, ``Distiller.unroll`` outputs) to and from the
   module's flat order, over the last axis.
+* :func:`bert_state_dict_from_jax` turns the JAX ``BertEncoder`` tree into
+  the state dict of :class:`~.bert.BertEncoder`.
 """
 
 from __future__ import annotations
@@ -148,6 +150,42 @@ def flat_from_jax(flat: np.ndarray, module: nn.Module) -> np.ndarray:
         raise ValueError(f"flat size {flat.shape[-1]} != module size "
                          f"{perm.size}")
     return flat[..., perm]
+
+
+def bert_state_dict_from_jax(params: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX ``BertEncoder``'s parameter tree -> the state dict of
+    :class:`~.bert.BertEncoder` (HF names; Dense kernels transposed)."""
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(np.asarray(a)))
+
+    def dense(tree):
+        return t(np.asarray(tree["kernel"]).T), t(tree["bias"])
+
+    def norm(tree):
+        return t(tree["scale"]), t(tree["bias"])
+
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(prefix, pair):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = pair
+
+    for name in ("word_embeddings", "position_embeddings",
+                 "token_type_embeddings"):
+        sd[f"embeddings.{name}.weight"] = t(params[name]["embedding"])
+    put("embeddings.LayerNorm", norm(params["embeddings_norm"]))
+    i = 0
+    while f"layer{i}" in params:
+        p, q = params[f"layer{i}"], f"encoder.layer.{i}"
+        for k in ("query", "key", "value"):
+            put(f"{q}.attention.self.{k}", dense(p["attention"][k]))
+        put(f"{q}.attention.output.dense", dense(p["attention_output"]))
+        put(f"{q}.attention.output.LayerNorm", norm(p["attention_norm"]))
+        put(f"{q}.intermediate.dense", dense(p["intermediate"]))
+        put(f"{q}.output.dense", dense(p["output"]))
+        put(f"{q}.output.LayerNorm", norm(p["output_norm"]))
+        i += 1
+    return sd
 
 
 def flat_to_jax(flat: np.ndarray, module: nn.Module) -> np.ndarray:

@@ -1,0 +1,139 @@
+"""Run logging (JSONL, wandb when wanted), timestamps and a trace scope.
+
+The port's own copy of ``multimodal_dataset_distillation_tpu/utils/
+logging.py``: :class:`RunLogger` writes every record to
+``{log_dir}/{name}.jsonl`` (and to wandb when it is importable and not
+disabled, offline unless configured otherwise); :class:`Profiler` is a
+``torch.profiler`` scope writing a Chrome trace, where the JAX package
+uses ``jax.profiler``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+class RunLogger:
+    """wandb if available and enabled, and always a JSONL file."""
+
+    def __init__(self, project: str = "DatasetDistillation",
+                 name: Optional[str] = None, config: Optional[Dict] = None,
+                 disable_wandb: bool = True, log_dir: str = "./logged_files"):
+        self.step = 0
+        self._wandb = None
+        self.name = name or time.strftime("%Y-%m-%d %H:%M:%S")
+        if not disable_wandb:
+            try:
+                # never block on the network: `wandb sync` uploads later
+                os.environ.setdefault("WANDB_MODE", "offline")
+                import wandb
+
+                wandb.init(project=project, config=config, name=name)
+                self._wandb = wandb
+                self.name = wandb.run.name or self.name
+            except Exception as e:  # any wandb failure: keep the JSONL log
+                print(f"[log] wandb unavailable ({e}); falling back to JSONL")
+        os.makedirs(log_dir, exist_ok=True)
+        safe = self.name.replace("/", "_").replace(":", "-").replace(" ", "_")
+        self._file = open(os.path.join(log_dir, f"{safe}.jsonl"), "a")
+
+    def _write(self, record: Dict[str, Any]) -> None:
+        self._file.write(json.dumps(record) + "\n")
+        self._file.flush()
+
+    def log(self, metrics: Dict[str, Any], step: Optional[int] = None):
+        step = self.step if step is None else step
+        clean = {}
+        for k, v in metrics.items():
+            if isinstance(v, (int, float, str)):
+                clean[k] = v
+                continue
+            try:  # numpy scalars, one-element arrays and tensors
+                clean[k] = float(v)
+            except (TypeError, ValueError):
+                continue
+        if self._wandb is not None:
+            self._wandb.log(clean, step=step)
+        self._write({"step": step, **clean})
+
+    # rich artifacts (reference distill.py:386-394: wandb Images /
+    # Histograms / Html sentence tables per eval)
+
+    def log_image(self, key: str, image, step: Optional[int] = None,
+                  caption: Optional[str] = None):
+        """``image``: an HWC array or the path of a saved PNG; the JSONL
+        records the path (an array by its shape)."""
+        step = self.step if step is None else step
+        is_path = isinstance(image, (str, os.PathLike))
+        if self._wandb is not None:
+            self._wandb.log({key: self._wandb.Image(
+                str(image) if is_path else np.asarray(image),
+                caption=caption)}, step=step)
+        ref = (str(image) if is_path
+               else f"<image {tuple(np.asarray(image).shape)}>")
+        self._write({"step": step, key: {"_type": "image", "path": ref}})
+
+    def log_histogram(self, key: str, values, step: Optional[int] = None):
+        """wandb.Histogram when available; summary statistics in the JSONL."""
+        step = self.step if step is None else step
+        v = np.asarray(values, np.float64).ravel()
+        if self._wandb is not None:
+            self._wandb.log({key: self._wandb.Histogram(v)}, step=step)
+        stats = {"n": int(v.size), "min": 0.0, "max": 0.0, "mean": 0.0,
+                 "std": 0.0}
+        if v.size:
+            stats.update(min=float(v.min()), max=float(v.max()),
+                         mean=float(v.mean()), std=float(v.std()))
+        self._write({"step": step, key: {"_type": "histogram", **stats}})
+
+    def log_html(self, key: str, html: str, step: Optional[int] = None,
+                 path: Optional[str] = None):
+        """wandb.Html when available; the JSONL records the backing file."""
+        step = self.step if step is None else step
+        if self._wandb is not None:
+            self._wandb.log({key: self._wandb.Html(html)}, step=step)
+        self._write({"step": step, key: {
+            "_type": "html", "path": path or f"<inline {len(html)}B>"}})
+
+    def finish(self):
+        if self._wandb is not None:
+            self._wandb.finish()
+        self._file.close()
+
+
+class Profiler:
+    """``torch.profiler`` over a scope (host ops, and the card's kernels
+    when one is present); writes ``{profile_dir}/trace.json`` (Chrome
+    trace format) on exit.  A no-op scope when ``profile_dir`` is empty."""
+
+    def __init__(self, profile_dir: Optional[str]):
+        self.dir = profile_dir
+        self._prof = None
+
+    def __enter__(self):
+        if self.dir:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=acts)
+            self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._prof is not None:
+            self._prof.__exit__(*exc)
+            os.makedirs(self.dir, exist_ok=True)
+            self._prof.export_chrome_trace(os.path.join(self.dir,
+                                                        "trace.json"))
+            self._prof = None
+        return False
+
+
+def get_time() -> str:
+    return time.strftime("[%Y-%m-%d %H:%M:%S]", time.localtime())

@@ -166,10 +166,14 @@ def test_create_dataset_synthetic_same():
     _assert_same_batches(_batches(t_loaders[0]), _batches(j_loaders[0]))
 
 
-@pytest.mark.parametrize("mode", [dict(), dict(device_augment=True)])
+@pytest.mark.parametrize("mode", [dict(device_augment=True),
+                                  dict(device_augment=True,
+                                       native_decode=False)])
 def test_unported_train_transform_raises(mode):
-    """``native_decode`` (the default) and ``device_augment`` install a
-    train transform that raises on its first call: the eval split works."""
+    """``device_augment`` installs a train transform that raises on its
+    first call, with ``native_decode`` (the default) on or off: the eval
+    split works.  (``native_decode`` alone installs the C++ decode pool's
+    transform: tests/test_torch_native.py.)"""
     cfg = Config(dataset="synthetic", image_size=SIZE, synthetic_size=2,
                  synthetic_test_size=2, **mode)
     train, _, test = tdata.create_dataset(cfg)

@@ -301,14 +301,15 @@ def test_buffers_written_by_jax_read_through_cycler(tmp_path):
         cyc = ExpertCycler(img_files, txt_files, max_start_epoch=2,
                            expert_epochs=1,
                            img_template=model.image_encoder,
-                           txt_template=model.text_projection, seed=0)
+                           txt_template=model.text_projection, seed=0,
+                           device="cpu")
         i0, t0, it, tt, start = cyc.next_segment()
         assert 0 <= start < 2
         np.testing.assert_array_equal(i0, want_img[start])
         np.testing.assert_array_equal(it, want_img[start + 1])
         np.testing.assert_array_equal(t0, want_txt[start])
         np.testing.assert_array_equal(tt, want_txt[start + 1])
-        ti, tt_, start = cyc.next_segment_device("cpu")
+        ti, tt_, start = cyc.next_segment_device()
         assert ti.dtype == torch.float32 and 0 <= start < 2
         np.testing.assert_array_equal(ti.numpy(), want_img)
         np.testing.assert_array_equal(tt_.numpy(), want_txt)

@@ -102,13 +102,20 @@ def test_lr_net_precedence_matches_jax(tmp_path, monkeypatch, capsys, argv,
         eval_distilled.explicit_flags(argv)) == pytest.approx(want)
 
 
-def test_missing_text_cache_names_the_file(tmp_path, monkeypatch):
+def test_missing_text_cache_names_the_file(tmp_path, monkeypatch, capsys):
+    """A missing test-caption cache is named and computed with the port's
+    own BERT (BERT-base, random init and the hashing tokenizer offline)."""
     monkeypatch.chdir(tmp_path)
-    argv = TINY + ["--distilled_npz", _write_set(tmp_path, "npz")]
-    with pytest.raises(NotImplementedError,
-                       match="synthetic_bert_text_embed.npz"):
-        eval_distilled.main(parse_config(argv, Config(device="cpu")),
-                            argv=argv)
+    argv = TINY + ["--distilled_npz", _write_set(tmp_path, "npz"),
+                   "--num_eval", "1"]
+    results = eval_distilled.main(parse_config(argv, Config(device="cpu")),
+                                  argv=argv)
+    assert "Processing ./synthetic_bert_text_embed.npz" in (
+        capsys.readouterr().out)
+    with np.load(tmp_path / "synthetic_bert_text_embed.npz") as f:
+        embed = f["bert_test_embed"]
+    assert embed.shape == (20, 768) and np.isfinite(embed).all()
+    assert len(results) == 1 and np.isfinite(results[0]["r_mean"])
     with pytest.raises(SystemExit, match="Sibling labels"):
         eval_distilled.load_distilled(str(tmp_path / "images_9.pt"))
 
