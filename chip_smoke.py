@@ -9,31 +9,33 @@ beside this file; exits non-zero, and prints no result, otherwise.  Phases,
 each of which raises on failure:
 
 1. Build the grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
-   and ``csrc/gconv3x3_tc.cu``, tensor cores; one ``nvcc`` each for
-   ``sm_90a``, started together) and print the card's name and power
-   limit.
+   ``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores, and
+   ``csrc/gconv3x3_tf32.cu``, the float32 wgrad on the tensor cores; one
+   ``nvcc`` each for ``sm_90a``, started together) and print the card's
+   name and power limit.
 2. Hold each kernel against its plain PyTorch version at NFNet-L0's three
    grouped-conv shapes (mini-batch 100): the forward conv, the input
    gradient (the forward kernel on the rotated weight) and the weight
-   gradient; the CUDA-core kernels in float32 and bfloat16, the
-   tensor-core kernels in bfloat16.  The tensor-core wgrad twice, for the
-   same bits.  Double-backward HVPs through the autograd Functions in
-   float32 (CUDA-core kernels) and bfloat16 (tensor-core kernels).  Times
-   of each kernel with a warm and a cold L2, of the plain version and of
-   the cuDNN call, beside the card's bound.
+   gradient; the CUDA-core kernels in float32 and bfloat16, the bf16
+   tensor-core kernels in bfloat16, the TF32 wgrad in float32.  Both
+   tensor-core wgrads twice, for the same bits.  Double-backward HVPs
+   through the autograd Functions in float32 (CUDA-core forward, TF32
+   wgrad) and bfloat16 (tensor-core kernels).  Times of each kernel with
+   a warm and a cold L2, of the plain version and of the cuDNN call,
+   beside the card's bound.
 3. The main path: ``Distiller.step_traj`` outer steps of NFNet-L0 at 224^2,
    nq=100, mb=100, syn_steps=8, bf16 inner compute, forward-HVP, kernels
    on, dropout and DropPath active; launch counters read around it: every
    grouped conv, dgrad and wgrad on the tensor-core kernels.
-4. One float32 outer step with the kernels (the CUDA-core route; counters
-   read around it) against the same step on ``F.conv2d`` (TF32 off), from
-   the same seed and state.
+4. One float32 outer step with the kernels (the CUDA-core forward and the
+   TF32 wgrad; counters read around it) against the same step on
+   ``F.conv2d`` (TF32 off), from the same seed and state.
 5. The eval path, through its entry point: ``cli/eval_distilled.main``
    trains 5 fresh NFNet-L0 students at 224^2 on phase 3's distilled set
    (100 pairs, its learned LR) and scores each on a 1000 x 5 synthetic
    test split (Flickr30K's test shape) with seeded text embeddings in
-   place of BERT's; float32, so the CUDA-core kernels; counters read
-   around it.
+   place of BERT's; float32, so the CUDA-core forward and the TF32
+   wgrad; counters read around it.
 6. One ``evaluate_synset`` of that path with the kernels against the same
    on ``F.conv2d`` (TF32 off), from the same init, seeds and batches.
 7. The distill entry point: ``cli/distill.main`` at full width (NFNet-L0
@@ -42,14 +44,15 @@ each of which raises on failure:
    the port's BERT, the init from real pairs, one buffer file of 2 experts
    x 3 epochs written first through the port's buffer writer, 4 headline
    outer steps (the tensor-core kernels), eval blocks of 2 parallel
-   float32 students at iterations 0 and 3 (the CUDA-core kernels), the
+   float32 students at iterations 0 and 3 (the float32 kernels), the
    artifacts, a checkpoint at 2.  Every ``Grand_Loss`` finite;
    ``distilled_{0,3}.npz`` read back; the checkpoint reloaded bit for bit;
    every student's nine metrics finite and in [0, 100]; launches exactly
    4 x phase 3's per step plus 2 x phase 5's per block at 2 students.
 
-Phase 2 also times the CUDA-core kernels in float32 (the route's dtype on
-phases 4-6) beside cuDNN's float32 call with TF32 off and on.
+Phase 2 also times the CUDA-core kernels and the TF32 wgrad in float32
+(the dtype of phases 4-7's eval students) beside cuDNN's float32 call with
+TF32 off and on.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``.
@@ -75,6 +78,8 @@ PKG = "multimodal_dataset_distillation_tpu_torch"
 
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12    # H100 SXM float32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12   # H100 SXM dense TF32 tensor-core FLOP/s
+TF32_PASSES = 3      # gconv3x3_tf32.cu: hi*hi + hi*lo + lo*hi
 HBM_BPS = 3.35e12    # H100 SXM device memory bytes/s
 
 # NFNet-L0's stride-1 grouped 3x3 sites at 224^2: (H, C, groups) -> count
@@ -83,17 +88,20 @@ BATCH = 100
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # x max|plain|; see below
 TPU_SRC = "multimodal_dataset_distillation_tpu/ops/pallas_gconv.py"
 L2_BYTES = 50e6      # H100 L2; the cold timings rotate through 3x this
-# the four kernels: LAUNCHES key -> (kind, route, source, TPU kernel line)
+# the five kernels: LAUNCHES key -> (kind, route, source, TPU kernel line)
 KERNELS = {
     "gconv3x3_fwd": ("fwd", "simt", "gconv3x3.cu", 176),
     "gconv3x3_wgrad": ("wgrad", "simt", "gconv3x3.cu", 223),
     "gconv3x3_fwd_tc": ("fwd", "tc", "gconv3x3_tc.cu", 176),
     "gconv3x3_wgrad_tc": ("wgrad", "tc", "gconv3x3_tc.cu", 223),
+    "gconv3x3_wgrad_tf32": ("wgrad", "tf32", "gconv3x3_tf32.cu", 223),
 }
 # launches per outer step of the headline configuration: each grouped site
 # runs 8 forward-kernel and 4 wgrad-kernel calls per inner step
 MAIN_PATH_PER_STEP = {"gconv3x3_fwd_tc": 19 * 8 * 8,
                       "gconv3x3_wgrad_tc": 19 * 4 * 8}
+# the same per inner step of a float32 outer step (phase 4)
+F32_PER_INNER_STEP = {"gconv3x3_fwd": 19 * 8, "gconv3x3_wgrad_tf32": 19 * 4}
 METRIC_KEYS = ("txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1",
                "img_r5", "img_r10", "img_r_mean", "r_mean")
 
@@ -165,8 +173,9 @@ def check(name: str, got, want, dtype) -> float:
 
 def check_kernels(gc):
     """Phase 2.  Tolerances: float32 1e-4 of the largest plain value (both
-    sides accumulate in float32, in other orders); bfloat16 1e-2 of it (the
-    kernel rounds its float32 sum to bfloat16, 2^-9 relative, and the plain
+    sides accumulate in float32, in other orders; the TF32 wgrad's three
+    passes keep ~2^-22 of each product); bfloat16 1e-2 of it (the kernel
+    rounds its float32 sum to bfloat16, 2^-9 relative, and the plain
     version is computed in float32 from the same bfloat16 operands)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -181,13 +190,22 @@ def check_kernels(gc):
         print(f"shape x=({BATCH},{h},{h},{c}) groups={groups} "
               f"({sites} sites per tower pass)", flush=True)
         row = {"shape": [BATCH, h, h, c], "groups": groups, "sites": sites}
-        for dtype, route in ((torch.float32, "simt"), (torch.bfloat16, "simt"),
-                             (torch.bfloat16, "tc")):
+        for dtype, route in ((torch.float32, "simt"), (torch.float32, "tf32"),
+                             (torch.bfloat16, "simt"), (torch.bfloat16, "tc")):
             x, w, yb = x32.to(dtype), w32.to(dtype), yb32.to(dtype)
             xf, wf, ybf = x.float(), w.float(), yb.float()
             tc = route == "tc"
             tag = f"{route}_{'f32' if dtype == torch.float32 else 'bf16'}"
             print(f"  {route} kernels:", flush=True)
+            if route == "tf32":   # the float32 wgrad on the tensor cores
+                dw = gc.gconv3x3_wgrad(x, yb, groups, tc=True)
+                row[f"wgrad_err_{tag}"] = check(
+                    "wgrad", dw, gc.gconv3x3_wgrad_ref(xf, ybf, groups),
+                    dtype)
+                if not torch.equal(dw, gc.gconv3x3_wgrad(x, yb, groups,
+                                                         tc=True)):
+                    raise AssertionError("TF32 wgrad differs on repeat")
+                continue
             row[f"fwd_err_{tag}"] = check(
                 "fwd", gc.gconv3x3_fwd(x, w, groups, tc=tc),
                 gc.gconv3x3_ref(xf, wf, groups), dtype)
@@ -204,10 +222,12 @@ def check_kernels(gc):
                                                             tc=True)):
                 raise AssertionError("tensor-core wgrad differs on repeat")
         # bf16 (the main path's dtype) on both routes; float32 (the dtype
-        # of phases 4-6) on the CUDA-core route
+        # of phases 4-6) on the CUDA cores and, for the wgrad, on TF32
         time_row(gc, row, x32.bfloat16(), w32.bfloat16(), yb32.bfloat16(),
-                 groups, ("simt", "tc"), "", PEAK_BF16)
-        time_row(gc, row, x32, w32, yb32, groups, ("simt",), "_f32",
+                 groups, {"fwd": ("simt", "tc"), "wgrad": ("simt", "tc")},
+                 "", PEAK_BF16)
+        time_row(gc, row, x32, w32, yb32, groups,
+                 {"fwd": ("simt",), "wgrad": ("simt", "tf32")}, "_f32",
                  PEAK_FP32)
         rows.append(row)
     return rows
@@ -215,9 +235,11 @@ def check_kernels(gc):
 
 def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
     """Times of one shape in one dtype into ``row`` (keys ending in
-    ``sfx``): each route's kernels warm and cold, the plain version, and
-    cuDNN's call (for float32 with TF32 off, the semantics, and on,
-    PyTorch's default), beside the bound at ``peak``."""
+    ``sfx``): each route's kernels (``routes``: kind -> routes) warm and
+    cold, the plain version, and cuDNN's call (for float32 with TF32 off,
+    the semantics, and on, PyTorch's default), beside the bound at
+    ``peak`` (the TF32 route's own bound: three passes at the TF32
+    rate)."""
     h, cpg, c = x.shape[1], w.shape[2], x.shape[3]
     w_oihw = w.permute(3, 2, 0, 1).contiguous()
     fwd_in, wgrad_in = cold_copies(x, w), cold_copies(x, yb)
@@ -226,6 +248,9 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
     flops = 2.0 * BATCH * h * h * c * 9 * cpg
     nbytes = (x.numel() + w.numel() + yb.numel()) * x.element_size()
     bound = bound_ms(flops, nbytes, peak)
+    if "tf32" in routes["wgrad"]:
+        row[f"wgrad_bound_tf32{sfx}_ms"], row[f"wgrad_bound_tf32{sfx}_by"] = (
+            bound_ms(TF32_PASSES * flops, nbytes, PEAK_TF32))
     library = {
         "fwd": lambda a, b: F.conv2d(a.permute(0, 3, 1, 2), b, padding=1,
                                      groups=groups),
@@ -250,8 +275,8 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
                                                           lib_in[kind][0])
             torch.backends.cudnn.allow_tf32 = False
         raw = getattr(gc, f"gconv3x3_{kind}")
-        for route in routes:
-            call = (lambda a, b, tc=(route == "tc"):
+        for route in routes[kind]:
+            call = (lambda a, b, tc=(route != "simt"):
                     raw(a, b, groups, tc=tc))
             row[f"{kind}_{route}{sfx}_ms"] = cuda_ms(call, warm)
             row[f"{kind}_{route}{sfx}_cold_ms"] = cuda_ms(call, cold)
@@ -261,8 +286,9 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
         if k.endswith("_ms") and ("_f32" in k) == bool(sfx)),
         flush=True)
     for kind in ("fwd", "wgrad"):
-        for route in routes:
-            share = (row[f"{kind}_bound{sfx}_ms"]
+        for route in routes[kind]:
+            bkey = "_tf32" if route == "tf32" else ""
+            share = (row[f"{kind}_bound{bkey}{sfx}_ms"]
                      / row[f"{kind}_{route}{sfx}_cold_ms"])
             print(f"  {kind} {route}{sfx}: bound share (cold) {share:.3f}",
                   flush=True)
@@ -271,8 +297,8 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
 def check_hvp(gc):
     """Double backward through GConv3x3 (its backward is GConv3x3 and
     GConv3x3Wgrad applies, so the HVP runs on the kernels) against autograd
-    through the plain version.  float32 on the CUDA-core kernels, tolerance
-    1e-4 of the largest plain value.  bfloat16 on the tensor-core kernels
+    through the plain version.  float32 on the CUDA-core forward and the
+    TF32 wgrad, tolerance 1e-4 of the largest plain value.  bfloat16 on the tensor-core kernels
     against the plain version in bfloat16 on the same operands: both round
     every intermediate (conv outputs, sin, cos, products) to bfloat16 at
     the same places and differ only in the order of the float32 sums
@@ -293,7 +319,8 @@ def check_hvp(gc):
         return torch.autograd.grad(
             (gx * vx.to(dtype)).sum() + (gw * vw.to(dtype)).sum(), (xx, ww))
 
-    for dtype, keys in ((torch.float32, ("gconv3x3_fwd", "gconv3x3_wgrad")),
+    for dtype, keys in ((torch.float32, ("gconv3x3_fwd",
+                                         "gconv3x3_wgrad_tf32")),
                         (torch.bfloat16, ("gconv3x3_fwd_tc",
                                           "gconv3x3_wgrad_tc"))):
         before = dict(gc.LAUNCHES)
@@ -442,9 +469,10 @@ def compare_f32(gc, cfg, mb: int = 25, syn_steps: int = 2):
         if not (ref.norm() > 0 and rel <= 1e-2):
             raise AssertionError(f"f32 meta-gradient {k} differs: {out}")
     print("f32 kernels vs F.conv2d: " + json.dumps(out), flush=True)
-    for k in ("gconv3x3_fwd", "gconv3x3_wgrad"):
-        if launches[k] == 0:
-            raise AssertionError(f"{k}: no launch on the float32 path")
+    want = {k: F32_PER_INNER_STEP.get(k, 0) * syn_steps for k in KERNELS}
+    if launches != want:
+        raise AssertionError(f"float32 step launches {launches}, expected "
+                             f"{want}")
     return out
 
 
@@ -465,12 +493,14 @@ def eval_launches(cfg, n_pairs: int) -> dict:
     """Kernel launches of the eval path: per student, every training step
     runs each of the 19 grouped sites forward, its input gradient (the
     stem's parameters lie upstream of every site) and its wgrad, and every
-    test batch runs them forward; float32, so only the CUDA-core kernels."""
+    test batch runs them forward; float32, so the CUDA-core forward and
+    the TF32 wgrad."""
     steps = (cfg.epoch_eval_train + 1) * math.ceil(n_pairs / cfg.batch_train)
     tests = math.ceil(cfg.synthetic_test_size / cfg.batch_size_test)
     return {"gconv3x3_fwd": cfg.num_eval * 19 * (2 * steps + tests),
-            "gconv3x3_wgrad": cfg.num_eval * 19 * steps,
-            "gconv3x3_fwd_tc": 0, "gconv3x3_wgrad_tc": 0}
+            "gconv3x3_wgrad": 0, "gconv3x3_fwd_tc": 0,
+            "gconv3x3_wgrad_tc": 0,
+            "gconv3x3_wgrad_tf32": cfg.num_eval * 19 * steps}
 
 
 def text_cache(cfg) -> np.ndarray:
@@ -599,8 +629,10 @@ def compare_eval(gc, Config, syn, **kw):
                                  for t in ("image_encoder",
                                            "text_projection")}}
     a, b = res[True], res[False]
-    if not (a["launches"]["gconv3x3_fwd"] and a["launches"]["gconv3x3_wgrad"]
-            and not b["launches"]["gconv3x3_fwd"]
+    if not (a["launches"]["gconv3x3_fwd"]
+            and a["launches"]["gconv3x3_wgrad_tf32"]
+            and not any(b["launches"].values())
+            and not a["launches"]["gconv3x3_wgrad"]
             and not a["launches"]["gconv3x3_fwd_tc"]):
         raise AssertionError(f"phase 6 launches: kernels {a['launches']}, "
                              f"F.conv2d {b['launches']}")
@@ -872,11 +904,13 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
 def kernel_entries(rows, launches, launches_eval, launches_cli):
     """One entry per kernel, summed over one tower pass (19 sites, mb=100),
     in the dtype of the paths that launch it: float32 for the CUDA-core
-    kernels (phases 4-6; their bf16 times beside, as ``*_bf16``), bf16 for
-    the tensor-core ones.  ``launches``: of the tensor-core kernels phase
-    3's (the bf16 main path), of the CUDA-core ones phase 4's (the float32
+    kernels (phases 4-6; their bf16 times beside, as ``*_bf16``) and the
+    TF32 wgrad (its bound: three passes at the TF32 rate, the CUDA cores'
+    float32 bound beside as ``bound_fp32_ms``), bf16 for the bf16
+    tensor-core ones.  ``launches``: of the bf16 tensor-core kernels phase
+    3's (the bf16 main path), of the float32 ones phase 4's (the float32
     outer step); ``launches_eval``: phase 5's (the eval path);
-    ``launches_cli``: phase 7's (the distill CLI, both routes)."""
+    ``launches_cli``: phase 7's (the distill CLI, all routes)."""
     def total(key):
         return sum(r["sites"] * r[key] for r in rows)
 
@@ -886,8 +920,9 @@ def kernel_entries(rows, launches, launches_eval, launches_cli):
 
     entries = []
     for name, (kind, route, src, line) in KERNELS.items():
-        sfx = "_f32" if route == "simt" else ""
-        bound, cold = (total(f"{kind}_bound{sfx}_ms"),
+        sfx = "" if route == "tc" else "_f32"
+        bkey = f"{kind}_bound{'_tf32' if route == 'tf32' else ''}{sfx}"
+        bound, cold = (total(f"{bkey}_ms"),
                        total(f"{kind}_{route}{sfx}_cold_ms"))
         entry = {
             "name": name, "route": "cuda",
@@ -901,24 +936,27 @@ def kernel_entries(rows, launches, launches_eval, launches_cli):
             "ms": total(f"{kind}_{route}{sfx}_ms"), "ms_cold": cold,
             "plain_ms": total(f"{kind}_plain{sfx}_ms"),
             "bound_ms": bound, "bound_share_cold": bound / cold,
-            "bound_by": max(rows, key=lambda r: r[f"{kind}_bound{sfx}_ms"])[
-                f"{kind}_bound{sfx}_by"],
+            "bound_by": max(rows, key=lambda r: r[f"{bkey}_ms"])[
+                f"{bkey}_by"],
             "library_ms": total(f"{kind}_library{sfx}_ms"),
             "library_cold_ms": total(f"{kind}_library{sfx}_cold_ms"),
         }
         keys = ["shape", "groups", "sites", f"{kind}_{route}{sfx}_ms",
                 f"{kind}_{route}{sfx}_cold_ms", f"{kind}_plain{sfx}_ms",
                 f"{kind}_library{sfx}_ms", f"{kind}_library{sfx}_cold_ms",
-                f"{kind}_bound{sfx}_ms"]
-        if sfx:   # cuDNN float32 with TF32, and this route's bf16 times
+                f"{bkey}_ms"]
+        if sfx:   # cuDNN float32 with TF32
             entry["library_tf32_ms"] = total(f"{kind}_library{sfx}_tf32_ms")
+            keys.append(f"{kind}_library{sfx}_tf32_ms")
+        if route == "tf32":
+            entry["bound_fp32_ms"] = total(f"{kind}_bound{sfx}_ms")
+        if route == "simt":   # this route's bf16 times
             entry.update({
                 "max_abs_err_bf16": err(kind, f"{route}_bf16"),
                 "ms_bf16": total(f"{kind}_{route}_ms"),
                 "ms_cold_bf16": total(f"{kind}_{route}_cold_ms"),
                 "bound_ms_bf16": total(f"{kind}_bound_ms"),
                 "library_ms_bf16": total(f"{kind}_library_ms")})
-            keys.append(f"{kind}_library{sfx}_tf32_ms")
         entry["per_shape"] = [{k: r[k] for k in keys} for r in rows]
         entries.append(entry)
     return entries
@@ -946,6 +984,9 @@ def main() -> int:
             if libs.tc.mdd_gconv3x3_tc_smem(i, h) != gc.tc_smem_bytes(kind, h):
                 raise AssertionError(f"tc_smem_bytes({kind!r}, {h}) differs "
                                      f"from gconv3x3_tc.cu")
+        if libs.tf32.mdd_gconv3x3_tf32_smem(h) != gc.tf32_smem_bytes(h):
+            raise AssertionError(f"tf32_smem_bytes({h}) differs from "
+                                 f"gconv3x3_tf32.cu")
 
     rows = check_kernels(gc)
     torch.cuda.empty_cache()

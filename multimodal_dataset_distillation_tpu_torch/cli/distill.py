@@ -36,7 +36,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
@@ -92,10 +92,11 @@ def make_eval_initializer(cfg: Config
     return init
 
 
-def check_supported(cfg: Config) -> None:
+def check_supported(cfg: Config, ignore: Sequence[str] = ()) -> None:
     """Raise ``NotImplementedError`` for a flag whose module is not ported
     yet (naming its ROADMAP item), and ``RuntimeError`` when the device
-    asked for is a card and none is there."""
+    asked for is a card and none is there.  ``ignore``: flags the calling
+    entry point never reads (as its JAX counterpart does not), skipped."""
     queued = [
         (cfg.zca, "--zca", "ops/zca.py", 17),
         (cfg.device_augment, "--device_augment",
@@ -120,7 +121,7 @@ def check_supported(cfg: Config) -> None:
                        f"{torch.cuda.device_count()} visible cards",
                        "parallel/mesh.py (multi-card)", 18))
     for on, flag, module, item in queued:
-        if on:
+        if on and flag not in ignore:
             raise NotImplementedError(
                 f"{flag}: {module} is not ported yet (ROADMAP A, item "
                 f"{item}); this entry point runs on one card")

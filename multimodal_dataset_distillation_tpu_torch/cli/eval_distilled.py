@@ -31,7 +31,12 @@ from ..data import get_dataset
 from ..data.textcache import load_or_process_file, textprocess
 from ..engine.eval import evaluate_synset, evaluate_synset_parallel
 from ..models.clip_model import build_bi_encoder
-from .distill import make_eval_initializer
+from .distill import check_supported, make_eval_initializer
+
+#: flags that the JAX eval_distilled never reads (the ZCA, the expert
+#: trainer's device augmentation, the mesh and the space-to-depth stem are
+#: the distill and buffer CLIs' only), so this entry point ignores them too
+EVAL_IGNORES = ("--zca", "--device_augment", "--mesh_shape", "--stem_s2d")
 
 
 def load_distilled(path: str):
@@ -74,7 +79,10 @@ def choose_lr_net(cfg: Config, payload, explicit: set) -> float:
 
 def main(cfg: Config, argv: Optional[Sequence[str]] = None) -> List[dict]:
     """``argv``: the command line the config came from (``sys.argv`` when
-    None), read only for an explicit ``--lr_net``."""
+    None), read only for an explicit ``--lr_net``.  A flag whose module is
+    not ported yet, or a card asked for and missing, raises before any
+    data is read (:func:`check_supported`)."""
+    check_supported(cfg, ignore=EVAL_IGNORES)
     if not cfg.distilled_npz:
         raise SystemExit("--distilled_npz=<path to distilled_{it}.npz or "
                          "images_{it}.pt> is required")

@@ -60,8 +60,14 @@ def build_bi_encoder(cfg: Config, device=None) -> VLBiEncoder:
     otherwise); the grouped 3x3 convs take the kernels when
     ``cfg.pallas_gconv`` is set."""
     if cfg.only_has_image_projection or cfg.transfer:
-        raise NotImplementedError("image projection / transfer towers come "
-                                  "with a later slice")
+        raise NotImplementedError(
+            "--transfer / --only_has_image_projection: the transfer and "
+            "image-projection heads are not ported yet (ROADMAP A, item 16)")
+    if cfg.image_encoder not in IMAGE_FEATURE_DIMS:
+        raise NotImplementedError(
+            f"--image_encoder={cfg.image_encoder}: models/zoo.py towers are "
+            f"not ported yet (ROADMAP A, item 16); the port has "
+            f"{', '.join(IMAGE_FEATURE_DIMS)}")
     text_dim = (_TINY_TEXT_DIM if cfg.text_encoder_config == "tiny"
                 else cfg.text_embedding)
     model = VLBiEncoder(image_encoder_name=cfg.image_encoder,

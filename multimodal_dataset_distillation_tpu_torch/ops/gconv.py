@@ -3,17 +3,21 @@ autograd wiring.
 
 Counterpart of ``multimodal_dataset_distillation_tpu/ops/pallas_gconv.py``.
 The two TPU kernels there (``_spatial_kernel`` and ``_wgrad_kernel``) have
-two CUDA routes here, each built with ``nvcc`` for ``sm_90a`` into
-``build/kernels/`` at first use (both sources at once) and called through
+three CUDA routes here, each built with ``nvcc`` for ``sm_90a`` into
+``build/kernels/`` at first use (all sources at once) and called through
 ``ctypes``:
 
 * ``csrc/gconv3x3_tc.cu``: tensor-core kernels (``wgmma`` with A from
   ldmatrix on halo rows, cp.async halo tiles) for bfloat16 with 64 input
   and 64 output channels per group, every grouped site of NFNet-L0;
+* ``csrc/gconv3x3_tf32.cu``: the float32 weight gradient at that width on
+  the tensor cores, in three TF32 passes (hi*hi + hi*lo + lo*hi of the
+  operands split by :func:`tf32_split`), float32-accurate;
 * ``csrc/gconv3x3.cu``: CUDA-core float32-FMA kernels for everything else
-  (float32, other group widths).
+  (the float32 forward, other group widths).
 
-:func:`use_tc` is the rule between them, by dtype and shape alone.
+:func:`use_tc` and :func:`use_tf32` are the rule between them, by dtype and
+shape alone.
 
 Public layout is the JAX one: NHWC activations x HWIO weights.
 
@@ -47,13 +51,17 @@ import torch.nn.functional as F
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = {"simt": (_CSRC / "gconv3x3.cu", _BUILD_DIR / "libgconv.so"),
-            "tc": (_CSRC / "gconv3x3_tc.cu", _BUILD_DIR / "libgconv_tc.so")}
+            "tc": (_CSRC / "gconv3x3_tc.cu", _BUILD_DIR / "libgconv_tc.so"),
+            "tf32": (_CSRC / "gconv3x3_tf32.cu",
+                     _BUILD_DIR / "libgconv_tf32.so")}
 
 #: kernel launches per wrapper route, counted where the wrapper launches:
 #: ``gconv3x3_fwd``/``gconv3x3_wgrad`` are the CUDA-core kernels,
-#: ``*_tc`` the tensor-core ones
+#: ``*_tc`` the bfloat16 tensor-core ones, ``gconv3x3_wgrad_tf32`` the
+#: float32 tensor-core wgrad
 LAUNCHES = {"gconv3x3_fwd": 0, "gconv3x3_wgrad": 0,
-            "gconv3x3_fwd_tc": 0, "gconv3x3_wgrad_tc": 0}
+            "gconv3x3_fwd_tc": 0, "gconv3x3_wgrad_tc": 0,
+            "gconv3x3_wgrad_tf32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132            # H100 SXM streaming multiprocessors
@@ -64,6 +72,7 @@ _WGRAD_SLICE = 16     # kTileK
 TC_WIDTH = 64         # channels per group, in and out
 TC_TILE = 128         # pixels per tile
 _TC_ROW = 2 * TC_WIDTH            # bytes of one pixel's group row
+_TF32_ROW = 4 * TC_WIDTH          # the same in float32 (gconv3x3_tf32.cu)
 _SMEM_BLOCK_MAX = 232_448         # dynamic shared memory one block may use
 _SMEM_SM = 233_472                # shared memory of one SM (228 KB)
 _SMEM_RESERVED = 1_024            # reserved by the runtime per block
@@ -73,6 +82,7 @@ _FWD_TC_BLOCKS_PER_SM = 2         # __launch_bounds__ of gconv3x3_fwd_tc
 class _Libs(NamedTuple):
     simt: ctypes.CDLL
     tc: ctypes.CDLL
+    tf32: ctypes.CDLL
 
 
 _libs: Optional[_Libs] = None
@@ -124,19 +134,22 @@ def build(verbose: bool = False) -> _Libs:
         os.replace(tmp, _SOURCES[name][1])  # atomic: old or new, never half
     if failed:
         raise RuntimeError("\n".join(failed))
-    simt = ctypes.CDLL(str(_SOURCES["simt"][1]))
-    tc = ctypes.CDLL(str(_SOURCES["tc"][1]))
+    simt, tc, tf32 = (ctypes.CDLL(str(_SOURCES[name][1]))
+                      for name in _Libs._fields)
     p, i = ctypes.c_void_p, ctypes.c_int
     simt.mdd_gconv3x3_fwd.argtypes = [p, p, p] + [i] * 7 + [p]
     simt.mdd_gconv3x3_wgrad.argtypes = [p, p, p, p] + [i] * 9 + [p]
     tc.mdd_gconv3x3_fwd_tc.argtypes = [p, p, p] + [i] * 5 + [p]
     tc.mdd_gconv3x3_wgrad_tc.argtypes = [p, p, p, p] + [i] * 6 + [p]
     tc.mdd_gconv3x3_tc_smem.argtypes = [i, i]
+    tf32.mdd_gconv3x3_wgrad_tf32.argtypes = [p, p, p, p] + [i] * 6 + [p]
+    tf32.mdd_gconv3x3_tf32_smem.argtypes = [i]
     for fn in (simt.mdd_gconv3x3_fwd, simt.mdd_gconv3x3_wgrad,
                tc.mdd_gconv3x3_fwd_tc, tc.mdd_gconv3x3_wgrad_tc,
-               tc.mdd_gconv3x3_tc_smem):
+               tc.mdd_gconv3x3_tc_smem, tf32.mdd_gconv3x3_wgrad_tf32,
+               tf32.mdd_gconv3x3_tf32_smem):
         fn.restype = i
-    _libs = _Libs(simt, tc)
+    _libs = _Libs(simt, tc, tf32)
     return _libs
 
 
@@ -155,15 +168,34 @@ def tc_smem_bytes(kind: str, width: int) -> int:
     raise ValueError(f"unknown kernel kind {kind!r}")
 
 
+def tf32_smem_bytes(width: int) -> int:
+    """Dynamic shared memory of the float32 tensor-core wgrad at image
+    width ``width``: ``wgrad_smem_bytes`` of gconv3x3_tf32.cu (align slack,
+    ybar hi + lo K-major, 2 x ybar tile, 2 x halo, 2 masks, zero row)."""
+    tile = TC_TILE * _TF32_ROW
+    halo = TC_TILE + 2 * width + 2
+    return (1024 + 4 * tile + 2 * halo * _TF32_ROW + 2 * TC_TILE * 2
+            + _TF32_ROW)
+
+
 def use_tc(kind: str, dtype: torch.dtype, cpg: int, opg: int,
            width: int) -> bool:
     """The dispatch rule: bfloat16 with 64 input and 64 output channels per
     group goes to the tensor-core kernel (``kind`` "fwd" or "wgrad"),
     unless the image is so wide that its halo tiles exceed a block's shared
     memory; everything else to the CUDA-core kernel.  A choice by dtype and
-    shape: the wrappers catch no failure of either route."""
+    shape: the wrappers catch no failure of any route."""
     return (dtype == torch.bfloat16 and cpg == TC_WIDTH and opg == TC_WIDTH
             and tc_smem_bytes(kind, width) <= _SMEM_BLOCK_MAX)
+
+
+def use_tf32(kind: str, dtype: torch.dtype, cpg: int, opg: int,
+             width: int) -> bool:
+    """The float32 side of the rule: a float32 wgrad with 64 input and 64
+    output channels per group goes to the three-pass TF32 kernel, unless
+    its halo tiles exceed a block's shared memory."""
+    return (kind == "wgrad" and dtype == torch.float32 and cpg == TC_WIDTH
+            and opg == TC_WIDTH and tf32_smem_bytes(width) <= _SMEM_BLOCK_MAX)
 
 
 def fwd_tc_blocks(m: int, groups: int, width: int, sms: int = _SMS) -> int:
@@ -180,9 +212,10 @@ def fwd_tc_blocks(m: int, groups: int, width: int, sms: int = _SMS) -> int:
 
 
 def wgrad_tc_splits(m: int, groups: int, sms: int = _SMS) -> tuple:
-    """(splits, tiles per split) of the tensor-core wgrad: about one block
-    per SM (splits x groups), each summing a contiguous run of 128-pixel
-    tiles; split s covers tiles [s * per, (s + 1) * per)."""
+    """(splits, tiles per split) of the tensor-core wgrads (bfloat16 and
+    float32): about one block per SM (splits x groups), each summing a
+    contiguous run of 128-pixel tiles; split s covers tiles
+    [s * per, (s + 1) * per)."""
     tiles = math.ceil(m / TC_TILE)
     per = math.ceil(tiles / max(1, min(tiles, sms // groups)))
     return math.ceil(tiles / per), per
@@ -221,6 +254,18 @@ def gconv3x3_wgrad_ref(x: torch.Tensor, ybar: torch.Tensor,
     return torch.stack(taps).reshape(3, 3, cpg, groups * opg)
 
 
+def tf32_split(t: torch.Tensor):
+    """float32 -> (hi, lo), both TF32 values (10 mantissa bits) with
+    hi + lo = t to ~2^-22 relative: hi is t rounded to nearest, ties away
+    from zero (cvt.rna.tf32.f32), lo the rest rounded the same way.  The
+    arithmetic of gconv3x3_tf32.cu's split, for the tests."""
+    def rna(a):
+        bits = (a.contiguous().view(torch.int32) + 0x1000) & -0x2000
+        return bits.view(torch.float32)
+    hi = rna(t)
+    return hi, rna(t - hi)
+
+
 def rot_swap(w: torch.Tensor, groups: int) -> torch.Tensor:
     """HWIO grouped kernel -> the kernel of the transposed (input-grad)
     conv: spatially rotated, per-group in/out channels swapped."""
@@ -257,21 +302,22 @@ def _cuda_check(name: str, *ts: torch.Tensor) -> int:
 
 
 def _route(name: str, kind: str, tc: Optional[bool], dtype: torch.dtype,
-           cpg: int, opg: int, width: int, *ts: torch.Tensor) -> bool:
-    """``tc`` None applies :func:`use_tc`; True demands the tensor-core
-    kernel (and raises where it does not apply), False the CUDA-core one."""
-    fits = use_tc(kind, dtype, cpg, opg, width)
-    if tc is None:
-        tc = fits
-    elif tc and not fits:
-        raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 with "
-                         f"{TC_WIDTH} channels per group in and out and "
-                         f"width <= its shared memory; got {dtype}, "
-                         f"{cpg}->{opg}, width {width}")
-    if tc and any(t.data_ptr() % 16 for t in ts):
+           cpg: int, opg: int, width: int, *ts: torch.Tensor) -> str:
+    """-> "tc", "tf32" or "simt".  ``tc`` None applies :func:`use_tc` and
+    :func:`use_tf32`; True demands the tensor-core kernel of the dtype (and
+    raises where none applies), False the CUDA-core one."""
+    fits = ("tc" if use_tc(kind, dtype, cpg, opg, width) else
+            "tf32" if use_tf32(kind, dtype, cpg, opg, width) else None)
+    if tc and fits is None:
+        raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 "
+                         f"(or a float32 wgrad) with {TC_WIDTH} channels per "
+                         f"group in and out and width <= its shared memory; "
+                         f"got {dtype}, {cpg}->{opg}, width {width}")
+    route = (fits or "simt") if tc is None else (fits if tc else "simt")
+    if route != "simt" and any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: the tensor-core kernel needs 16-byte "
                          f"aligned operands")
-    return tc
+    return route
 
 
 def _launched(name: str, rc: int) -> None:
@@ -298,11 +344,11 @@ def gconv3x3_fwd(x: torch.Tensor, w: torch.Tensor, groups: int,
     if y.numel() == 0:
         return y
     opg = feats // groups
-    tc = _route("gconv3x3_fwd", "fwd", tc, x.dtype, cpg, opg, wd, x, w, y)
+    route = _route("gconv3x3_fwd", "fwd", tc, x.dtype, cpg, opg, wd, x, w, y)
     libs = build()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if tc:
+        if route == "tc":
             blocks = fwd_tc_blocks(n * h * wd, groups, wd, _sm_count(x.device))
             _launched("gconv3x3_fwd_tc", libs.tc.mdd_gconv3x3_fwd_tc(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, groups,
@@ -329,7 +375,8 @@ def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor, groups: int,
                    tc: Optional[bool] = None) -> torch.Tensor:
     """dW (3,3,C/groups,F) of the conv, from its input x (N,H,W,C) and the
     output cotangent ybar (N,H,W,F); in x's dtype.  On the card ``tc``
-    picks the kernel (see :func:`_route`); the CPU ignores it."""
+    picks the kernel (see :func:`_route`: True is the tensor-core kernel of
+    the dtype, the TF32 one for float32); the CPU ignores it."""
     _check("gconv3x3_wgrad", x, ybar)
     n, h, wd, c = x.shape
     feats = ybar.shape[-1]
@@ -344,21 +391,27 @@ def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor, groups: int,
     if m == 0:
         return torch.zeros((3, 3, cpg, feats), dtype=x.dtype, device=x.device)
     dw = torch.empty((3, 3, cpg, feats), dtype=x.dtype, device=x.device)
-    tc = _route("gconv3x3_wgrad", "wgrad", tc, x.dtype, cpg, opg, wd, x,
-                ybar, dw)
-    if tc:
-        splits, per = wgrad_tc_splits(m, groups, _sm_count(x.device))
-    else:
+    route = _route("gconv3x3_wgrad", "wgrad", tc, x.dtype, cpg, opg, wd, x,
+                   ybar, dw)
+    if route == "simt":
         splits, per = wgrad_splits(m, groups, cpg, opg)
+    else:
+        splits, per = wgrad_tc_splits(m, groups, _sm_count(x.device))
     ws = torch.empty(splits * groups * 9 * cpg * opg, dtype=torch.float32,
                      device=x.device)
     libs = build()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if tc:
+        if route == "tc":
             _launched("gconv3x3_wgrad_tc", libs.tc.mdd_gconv3x3_wgrad_tc(
                 x.data_ptr(), ybar.data_ptr(), ws.data_ptr(), dw.data_ptr(),
                 n, h, wd, groups, splits, per, stream))
+        elif route == "tf32":
+            _launched("gconv3x3_wgrad_tf32",
+                      libs.tf32.mdd_gconv3x3_wgrad_tf32(
+                          x.data_ptr(), ybar.data_ptr(), ws.data_ptr(),
+                          dw.data_ptr(), n, h, wd, groups, splits, per,
+                          stream))
         else:
             _launched("gconv3x3_wgrad", libs.simt.mdd_gconv3x3_wgrad(
                 x.data_ptr(), ybar.data_ptr(), ws.data_ptr(), dw.data_ptr(),

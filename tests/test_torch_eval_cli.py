@@ -90,9 +90,15 @@ def test_lr_net_precedence_matches_jax(tmp_path, monkeypatch, capsys, argv,
     monkeypatch.setattr(eval_distilled, "get_dataset", stop)
     lr_net = 0.3 if "0.3" in argv else 0.2 if argv else 0.1
     outs = []
-    for main, cfg in ((jcli.main, JConfig), (eval_distilled.main, Config)):
+    # the port's CLI checks for the card before it reads anything: on the
+    # CPU here
+    for main, cfg in ((jcli.main, JConfig(distilled_npz=path,
+                                          lr_net=lr_net)),
+                      (eval_distilled.main, Config(distilled_npz=path,
+                                                   lr_net=lr_net,
+                                                   device="cpu"))):
         with pytest.raises(Chosen):
-            main(cfg(distilled_npz=path, lr_net=lr_net))
+            main(cfg)
         outs.append(capsys.readouterr().out)
     assert outs[0] == outs[1]
     payload = dict(np.load(path))

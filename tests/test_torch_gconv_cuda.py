@@ -1,5 +1,6 @@
-"""The grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores, and
-``csrc/gconv3x3_tc.cu``, tensor cores) on the card.
+"""The grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
+``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores, and ``csrc/gconv3x3_tf32.cu``,
+the float32 wgrad on the tensor cores) on the card.
 
 Marker ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -55,11 +56,14 @@ def test_kernels_match_plain_on_card(card, dtype, G, cpg, opg):
     _close(tg.gconv3x3_wgrad(x, ybar, G),
            tg.gconv3x3_wgrad_ref(xf, ybf, G), dtype)
     torch.cuda.synchronize()
-    # bfloat16 at group width 64 takes the tensor-core route
-    sfx = "_tc" if tg.use_tc("fwd", dtype, cpg, opg, 7) else ""
-    assert tg.LAUNCHES["gconv3x3_fwd" + sfx] == before["gconv3x3_fwd" + sfx] + 2
-    assert (tg.LAUNCHES["gconv3x3_wgrad" + sfx]
-            == before["gconv3x3_wgrad" + sfx] + 1)
+    # bfloat16 at group width 64 takes the tensor-core routes, float32 at
+    # that width the TF32 wgrad
+    fwd = "_tc" if tg.use_tc("fwd", dtype, cpg, opg, 7) else ""
+    wgrad = ("_tc" if tg.use_tc("wgrad", dtype, cpg, opg, 7) else
+             "_tf32" if tg.use_tf32("wgrad", dtype, cpg, opg, 7) else "")
+    assert tg.LAUNCHES["gconv3x3_fwd" + fwd] == before["gconv3x3_fwd" + fwd] + 2
+    assert (tg.LAUNCHES["gconv3x3_wgrad" + wgrad]
+            == before["gconv3x3_wgrad" + wgrad] + 1)
 
 
 @pytest.mark.cuda
@@ -107,6 +111,65 @@ def test_tc_wgrad_is_bit_identical_on_repeat(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,G", [
+    (100, 28, 28, 2),   # NFNet-L0's three grouped-conv shapes at mb=100
+    (100, 14, 14, 6),
+    (100, 7, 7, 6),
+    (3, 7, 7, 3),       # 147 pixels: one full tile and a 19-pixel tail
+    (2, 1, 13, 2),      # H = 1: the dy = +-1 taps are all padding
+    (5, 17, 1, 2),      # W = 1: the dx = +-1 taps are all padding
+    (1, 30, 31, 2),     # W = 31: the widest halo these cases take
+])
+def test_tf32_wgrad_matches_plain_on_card(card, N, H, W, G):
+    """The float32 tensor-core wgrad (three TF32 passes) against the plain
+    version in float32, to the float32 tolerance; the route takes it
+    unasked, and the CUDA-core wgrad stays reachable by ``tc=False``."""
+    c = G * 64
+    x = torch.randn(N, H, W, c, device="cuda", generator=card)
+    ybar = torch.randn(N, H, W, c, device="cuda", generator=card)
+    want = tg.gconv3x3_wgrad_ref(x, ybar, G)
+    before = dict(tg.LAUNCHES)
+    _close(tg.gconv3x3_wgrad(x, ybar, G), want, torch.float32)
+    _close(tg.gconv3x3_wgrad(x, ybar, G, tc=False), want, torch.float32)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES["gconv3x3_wgrad_tf32"] == before["gconv3x3_wgrad_tf32"] + 1
+    assert tg.LAUNCHES["gconv3x3_wgrad"] == before["gconv3x3_wgrad"] + 1
+
+
+@pytest.mark.cuda
+def test_tf32_wgrad_is_bit_identical_on_repeat(card):
+    x = torch.randn(100, 14, 14, 384, device="cuda", generator=card)
+    ybar = torch.randn(100, 14, 14, 384, device="cuda", generator=card)
+    a = tg.gconv3x3_wgrad(x, ybar, 6)
+    b = tg.gconv3x3_wgrad(x, ybar, 6)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_float32_double_backward_on_tf32_wgrad(card):
+    """The float32 HVP at group width 64: every wgrad of its backward (and
+    of the backward's backward) runs on the TF32 kernel."""
+    G, cpg = 2, 64
+    x = torch.randn(2, 6, 6, G * cpg, device="cuda", generator=card)
+    w = torch.randn(3, 3, cpg, G * cpg, device="cuda", generator=card) / 24.0
+    vx, vw = torch.randn_like(x), torch.randn_like(w) / 24.0
+
+    def hvp(conv):
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        gx, gw = torch.autograd.grad(torch.sin(conv(xx, ww, G)).sum(),
+                                     (xx, ww), create_graph=True)
+        return torch.autograd.grad((gx * vx).sum() + (gw * vw).sum(),
+                                   (xx, ww))
+
+    before = dict(tg.LAUNCHES)
+    got = hvp(tg.gconv3x3)
+    assert tg.LAUNCHES["gconv3x3_wgrad_tf32"] > before["gconv3x3_wgrad_tf32"]
+    assert tg.LAUNCHES["gconv3x3_wgrad"] == before["gconv3x3_wgrad"]
+    for a, b in zip(got, hvp(tg.gconv3x3_ref)):
+        _close(a, b, torch.float32)
+
+
+@pytest.mark.cuda
 def test_double_backward_on_card(card):
     """A Hessian-vector product through GConv3x3 (its backward is built
     from the two Functions, so it runs on the kernels) against autograd
@@ -138,3 +201,6 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         tg.gconv3x3_fwd(xs, w.float(), 2)
     with pytest.raises(ValueError, match="tensor-core kernel takes"):
         tg.gconv3x3_fwd(x.float(), w.float(), 2, tc=True)
+    with pytest.raises(ValueError, match="tensor-core kernel takes"):
+        tg.gconv3x3_wgrad(x[..., :8].float(), x[..., :8].float(), 2,
+                          tc=True)
