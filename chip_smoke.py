@@ -10,32 +10,32 @@ each of which raises on failure:
 
 1. Build the grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
    ``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores, and
-   ``csrc/gconv3x3_tf32.cu``, the float32 wgrad on the tensor cores; one
-   ``nvcc`` each for ``sm_90a``, started together) and print the card's
-   name and power limit.
+   ``csrc/gconv3x3_tf32.cu``, float32 on the tensor cores; one ``nvcc``
+   each for ``sm_90a``, started together) and print the card's name and
+   power limit.
 2. Hold each kernel against its plain PyTorch version at NFNet-L0's three
    grouped-conv shapes (mini-batch 100): the forward conv, the input
    gradient (the forward kernel on the rotated weight) and the weight
    gradient; the CUDA-core kernels in float32 and bfloat16, the bf16
-   tensor-core kernels in bfloat16, the TF32 wgrad in float32.  Both
-   tensor-core wgrads twice, for the same bits.  Double-backward HVPs
-   through the autograd Functions in float32 (CUDA-core forward, TF32
-   wgrad) and bfloat16 (tensor-core kernels).  Times of each kernel with
-   a warm and a cold L2, of the plain version and of the cuDNN call,
-   beside the card's bound.
+   tensor-core kernels in bfloat16, the TF32 forward and wgrad in
+   float32.  The tensor-core wgrads and the TF32 forward twice, for the
+   same bits.  Double-backward HVPs through the autograd Functions in
+   float32 (TF32 kernels) and bfloat16 (bf16 tensor-core kernels).  Times
+   of each kernel with a warm and a cold L2, of the plain version and of
+   the cuDNN call, beside the card's bound.
 3. The main path: ``Distiller.step_traj`` outer steps of NFNet-L0 at 224^2,
    nq=100, mb=100, syn_steps=8, bf16 inner compute, forward-HVP, kernels
    on, dropout and DropPath active; launch counters read around it: every
    grouped conv, dgrad and wgrad on the tensor-core kernels.
-4. One float32 outer step with the kernels (the CUDA-core forward and the
-   TF32 wgrad; counters read around it) against the same step on
+4. One float32 outer step with the kernels (the TF32 forward and wgrad;
+   counters read around it) against the same step on
    ``F.conv2d`` (TF32 off), from the same seed and state.
 5. The eval path, through its entry point: ``cli/eval_distilled.main``
    trains 5 fresh NFNet-L0 students at 224^2 on phase 3's distilled set
    (100 pairs, its learned LR) and scores each on a 1000 x 5 synthetic
    test split (Flickr30K's test shape) with seeded text embeddings in
-   place of BERT's; float32, so the CUDA-core forward and the TF32
-   wgrad; counters read around it.
+   place of BERT's; float32, so the TF32 forward and wgrad; counters
+   read around it.
 6. One ``evaluate_synset`` of that path with the kernels against the same
    on ``F.conv2d`` (TF32 off), from the same init, seeds and batches.
 7. The distill entry point: ``cli/distill.main`` at full width (NFNet-L0
@@ -50,7 +50,7 @@ each of which raises on failure:
    every student's nine metrics finite and in [0, 100]; launches exactly
    4 x phase 3's per step plus 2 x phase 5's per block at 2 students.
 
-Phase 2 also times the CUDA-core kernels and the TF32 wgrad in float32
+Phase 2 also times the CUDA-core kernels and the TF32 kernels in float32
 (the dtype of phases 4-7's eval students) beside cuDNN's float32 call with
 TF32 off and on.
 
@@ -88,20 +88,22 @@ BATCH = 100
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # x max|plain|; see below
 TPU_SRC = "multimodal_dataset_distillation_tpu/ops/pallas_gconv.py"
 L2_BYTES = 50e6      # H100 L2; the cold timings rotate through 3x this
-# the five kernels: LAUNCHES key -> (kind, route, source, TPU kernel line)
+# the six kernels: LAUNCHES key -> (kind, route, source, TPU kernel line)
 KERNELS = {
     "gconv3x3_fwd": ("fwd", "simt", "gconv3x3.cu", 176),
     "gconv3x3_wgrad": ("wgrad", "simt", "gconv3x3.cu", 223),
     "gconv3x3_fwd_tc": ("fwd", "tc", "gconv3x3_tc.cu", 176),
     "gconv3x3_wgrad_tc": ("wgrad", "tc", "gconv3x3_tc.cu", 223),
     "gconv3x3_wgrad_tf32": ("wgrad", "tf32", "gconv3x3_tf32.cu", 223),
+    "gconv3x3_fwd_tf32": ("fwd", "tf32", "gconv3x3_tf32.cu", 176),
 }
 # launches per outer step of the headline configuration: each grouped site
 # runs 8 forward-kernel and 4 wgrad-kernel calls per inner step
 MAIN_PATH_PER_STEP = {"gconv3x3_fwd_tc": 19 * 8 * 8,
                       "gconv3x3_wgrad_tc": 19 * 4 * 8}
 # the same per inner step of a float32 outer step (phase 4)
-F32_PER_INNER_STEP = {"gconv3x3_fwd": 19 * 8, "gconv3x3_wgrad_tf32": 19 * 4}
+F32_PER_INNER_STEP = {"gconv3x3_fwd_tf32": 19 * 8,
+                      "gconv3x3_wgrad_tf32": 19 * 4}
 METRIC_KEYS = ("txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1",
                "img_r5", "img_r10", "img_r_mean", "r_mean")
 
@@ -173,10 +175,11 @@ def check(name: str, got, want, dtype) -> float:
 
 def check_kernels(gc):
     """Phase 2.  Tolerances: float32 1e-4 of the largest plain value (both
-    sides accumulate in float32, in other orders; the TF32 wgrad's three
-    passes keep ~2^-22 of each product); bfloat16 1e-2 of it (the kernel
-    rounds its float32 sum to bfloat16, 2^-9 relative, and the plain
-    version is computed in float32 from the same bfloat16 operands)."""
+    sides accumulate in float32, in other orders; the TF32 kernels' three
+    passes keep ~2^-22 of each product, where one pass would miss by
+    ~3e-4); bfloat16 1e-2 of it (the kernel rounds its float32 sum to
+    bfloat16, 2^-9 relative, and the plain version is computed in float32
+    from the same bfloat16 operands)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -194,21 +197,15 @@ def check_kernels(gc):
                              (torch.bfloat16, "simt"), (torch.bfloat16, "tc")):
             x, w, yb = x32.to(dtype), w32.to(dtype), yb32.to(dtype)
             xf, wf, ybf = x.float(), w.float(), yb.float()
-            tc = route == "tc"
+            tc = route != "simt"
             tag = f"{route}_{'f32' if dtype == torch.float32 else 'bf16'}"
             print(f"  {route} kernels:", flush=True)
-            if route == "tf32":   # the float32 wgrad on the tensor cores
-                dw = gc.gconv3x3_wgrad(x, yb, groups, tc=True)
-                row[f"wgrad_err_{tag}"] = check(
-                    "wgrad", dw, gc.gconv3x3_wgrad_ref(xf, ybf, groups),
-                    dtype)
-                if not torch.equal(dw, gc.gconv3x3_wgrad(x, yb, groups,
-                                                         tc=True)):
-                    raise AssertionError("TF32 wgrad differs on repeat")
-                continue
+            y = gc.gconv3x3_fwd(x, w, groups, tc=tc)
             row[f"fwd_err_{tag}"] = check(
-                "fwd", gc.gconv3x3_fwd(x, w, groups, tc=tc),
-                gc.gconv3x3_ref(xf, wf, groups), dtype)
+                "fwd", y, gc.gconv3x3_ref(xf, wf, groups), dtype)
+            if route == "tf32" and not torch.equal(
+                    y, gc.gconv3x3_fwd(x, w, groups, tc=True)):
+                raise AssertionError("TF32 forward differs on repeat")
             xr = xf.clone().requires_grad_()
             (dx_plain,) = torch.autograd.grad(gc.gconv3x3_ref(xr, wf, groups),
                                               xr, ybf)
@@ -222,13 +219,13 @@ def check_kernels(gc):
                                                             tc=True)):
                 raise AssertionError("tensor-core wgrad differs on repeat")
         # bf16 (the main path's dtype) on both routes; float32 (the dtype
-        # of phases 4-6) on the CUDA cores and, for the wgrad, on TF32
+        # of phases 4-7's eval students) on the CUDA cores and on TF32
         time_row(gc, row, x32.bfloat16(), w32.bfloat16(), yb32.bfloat16(),
                  groups, {"fwd": ("simt", "tc"), "wgrad": ("simt", "tc")},
                  "", PEAK_BF16)
         time_row(gc, row, x32, w32, yb32, groups,
-                 {"fwd": ("simt",), "wgrad": ("simt", "tf32")}, "_f32",
-                 PEAK_FP32)
+                 {"fwd": ("simt", "tf32"), "wgrad": ("simt", "tf32")},
+                 "_f32", PEAK_FP32)
         rows.append(row)
     return rows
 
@@ -248,9 +245,11 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
     flops = 2.0 * BATCH * h * h * c * 9 * cpg
     nbytes = (x.numel() + w.numel() + yb.numel()) * x.element_size()
     bound = bound_ms(flops, nbytes, peak)
-    if "tf32" in routes["wgrad"]:
-        row[f"wgrad_bound_tf32{sfx}_ms"], row[f"wgrad_bound_tf32{sfx}_by"] = (
-            bound_ms(TF32_PASSES * flops, nbytes, PEAK_TF32))
+    for kind in routes:
+        if "tf32" in routes[kind]:
+            row[f"{kind}_bound_tf32{sfx}_ms"], row[
+                f"{kind}_bound_tf32{sfx}_by"] = bound_ms(
+                    TF32_PASSES * flops, nbytes, PEAK_TF32)
     library = {
         "fwd": lambda a, b: F.conv2d(a.permute(0, 3, 1, 2), b, padding=1,
                                      groups=groups),
@@ -297,13 +296,13 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
 def check_hvp(gc):
     """Double backward through GConv3x3 (its backward is GConv3x3 and
     GConv3x3Wgrad applies, so the HVP runs on the kernels) against autograd
-    through the plain version.  float32 on the CUDA-core forward and the
-    TF32 wgrad, tolerance 1e-4 of the largest plain value.  bfloat16 on the tensor-core kernels
-    against the plain version in bfloat16 on the same operands: both round
-    every intermediate (conv outputs, sin, cos, products) to bfloat16 at
-    the same places and differ only in the order of the float32 sums
-    inside each conv, so 2e-2 of the largest plain value (a few bfloat16
-    ulps, 2^-8 each, carried through two chained convs)."""
+    through the plain version.  float32 on the TF32 forward and wgrad,
+    tolerance 1e-4 of the largest plain value.  bfloat16 on the tensor-core
+    kernels against the plain version in bfloat16 on the same operands:
+    both round every intermediate (conv outputs, sin, cos, products) to
+    bfloat16 at the same places and differ only in the order of the
+    float32 sums inside each conv, so 2e-2 of the largest plain value (a
+    few bfloat16 ulps, 2^-8 each, carried through two chained convs)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     groups, cpg = 2, 64
     x = torch.randn(2, 6, 6, groups * cpg, device="cuda", generator=gen)
@@ -319,7 +318,7 @@ def check_hvp(gc):
         return torch.autograd.grad(
             (gx * vx.to(dtype)).sum() + (gw * vw.to(dtype)).sum(), (xx, ww))
 
-    for dtype, keys in ((torch.float32, ("gconv3x3_fwd",
+    for dtype, keys in ((torch.float32, ("gconv3x3_fwd_tf32",
                                          "gconv3x3_wgrad_tf32")),
                         (torch.bfloat16, ("gconv3x3_fwd_tc",
                                           "gconv3x3_wgrad_tc"))):
@@ -493,14 +492,14 @@ def eval_launches(cfg, n_pairs: int) -> dict:
     """Kernel launches of the eval path: per student, every training step
     runs each of the 19 grouped sites forward, its input gradient (the
     stem's parameters lie upstream of every site) and its wgrad, and every
-    test batch runs them forward; float32, so the CUDA-core forward and
-    the TF32 wgrad."""
+    test batch runs them forward; float32, so the TF32 forward and
+    wgrad."""
     steps = (cfg.epoch_eval_train + 1) * math.ceil(n_pairs / cfg.batch_train)
     tests = math.ceil(cfg.synthetic_test_size / cfg.batch_size_test)
-    return {"gconv3x3_fwd": cfg.num_eval * 19 * (2 * steps + tests),
-            "gconv3x3_wgrad": 0, "gconv3x3_fwd_tc": 0,
+    return {"gconv3x3_fwd": 0, "gconv3x3_wgrad": 0, "gconv3x3_fwd_tc": 0,
             "gconv3x3_wgrad_tc": 0,
-            "gconv3x3_wgrad_tf32": cfg.num_eval * 19 * steps}
+            "gconv3x3_wgrad_tf32": cfg.num_eval * 19 * steps,
+            "gconv3x3_fwd_tf32": cfg.num_eval * 19 * (2 * steps + tests)}
 
 
 def text_cache(cfg) -> np.ndarray:
@@ -629,9 +628,10 @@ def compare_eval(gc, Config, syn, **kw):
                                  for t in ("image_encoder",
                                            "text_projection")}}
     a, b = res[True], res[False]
-    if not (a["launches"]["gconv3x3_fwd"]
+    if not (a["launches"]["gconv3x3_fwd_tf32"]
             and a["launches"]["gconv3x3_wgrad_tf32"]
             and not any(b["launches"].values())
+            and not a["launches"]["gconv3x3_fwd"]
             and not a["launches"]["gconv3x3_wgrad"]
             and not a["launches"]["gconv3x3_fwd_tc"]):
         raise AssertionError(f"phase 6 launches: kernels {a['launches']}, "
@@ -904,9 +904,9 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
 def kernel_entries(rows, launches, launches_eval, launches_cli):
     """One entry per kernel, summed over one tower pass (19 sites, mb=100),
     in the dtype of the paths that launch it: float32 for the CUDA-core
-    kernels (phases 4-6; their bf16 times beside, as ``*_bf16``) and the
-    TF32 wgrad (its bound: three passes at the TF32 rate, the CUDA cores'
-    float32 bound beside as ``bound_fp32_ms``), bf16 for the bf16
+    kernels (their bf16 times beside, as ``*_bf16``) and the TF32 kernels
+    (phases 4-7; their bound: three passes at the TF32 rate, the CUDA
+    cores' float32 bound beside as ``bound_fp32_ms``), bf16 for the bf16
     tensor-core ones.  ``launches``: of the bf16 tensor-core kernels phase
     3's (the bf16 main path), of the float32 ones phase 4's (the float32
     outer step); ``launches_eval``: phase 5's (the eval path);
@@ -984,9 +984,11 @@ def main() -> int:
             if libs.tc.mdd_gconv3x3_tc_smem(i, h) != gc.tc_smem_bytes(kind, h):
                 raise AssertionError(f"tc_smem_bytes({kind!r}, {h}) differs "
                                      f"from gconv3x3_tc.cu")
-        if libs.tf32.mdd_gconv3x3_tf32_smem(h) != gc.tf32_smem_bytes(h):
-            raise AssertionError(f"tf32_smem_bytes({h}) differs from "
-                                 f"gconv3x3_tf32.cu")
+        for i, mirror in enumerate((gc.tf32_fwd_smem_bytes,
+                                    gc.tf32_smem_bytes)):
+            if libs.tf32.mdd_gconv3x3_tf32_smem(i, h) != mirror(h):
+                raise AssertionError(f"{mirror.__name__}({h}) differs from "
+                                     f"gconv3x3_tf32.cu")
 
     rows = check_kernels(gc)
     torch.cuda.empty_cache()

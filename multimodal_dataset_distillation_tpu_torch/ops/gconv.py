@@ -10,11 +10,11 @@ three CUDA routes here, each built with ``nvcc`` for ``sm_90a`` into
 * ``csrc/gconv3x3_tc.cu``: tensor-core kernels (``wgmma`` with A from
   ldmatrix on halo rows, cp.async halo tiles) for bfloat16 with 64 input
   and 64 output channels per group, every grouped site of NFNet-L0;
-* ``csrc/gconv3x3_tf32.cu``: the float32 weight gradient at that width on
-  the tensor cores, in three TF32 passes (hi*hi + hi*lo + lo*hi of the
-  operands split by :func:`tf32_split`), float32-accurate;
+* ``csrc/gconv3x3_tf32.cu``: float32 at that width (forward, dgrad and
+  wgrad) on the tensor cores, in three TF32 passes (hi*hi + hi*lo + lo*hi
+  of the operands split by :func:`tf32_split`), float32-accurate;
 * ``csrc/gconv3x3.cu``: CUDA-core float32-FMA kernels for everything else
-  (the float32 forward, other group widths).
+  (other group widths, images too wide for the tensor-core tiles).
 
 :func:`use_tc` and :func:`use_tf32` are the rule between them, by dtype and
 shape alone.
@@ -57,11 +57,12 @@ _SOURCES = {"simt": (_CSRC / "gconv3x3.cu", _BUILD_DIR / "libgconv.so"),
 
 #: kernel launches per wrapper route, counted where the wrapper launches:
 #: ``gconv3x3_fwd``/``gconv3x3_wgrad`` are the CUDA-core kernels,
-#: ``*_tc`` the bfloat16 tensor-core ones, ``gconv3x3_wgrad_tf32`` the
-#: float32 tensor-core wgrad
+#: ``*_tc`` the bfloat16 tensor-core ones, ``*_tf32`` the float32
+#: tensor-core ones (the forward's weight pre-pass and main kernel are one
+#: launch of its entry point)
 LAUNCHES = {"gconv3x3_fwd": 0, "gconv3x3_wgrad": 0,
             "gconv3x3_fwd_tc": 0, "gconv3x3_wgrad_tc": 0,
-            "gconv3x3_wgrad_tf32": 0}
+            "gconv3x3_wgrad_tf32": 0, "gconv3x3_fwd_tf32": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132            # H100 SXM streaming multiprocessors
@@ -77,6 +78,9 @@ _SMEM_BLOCK_MAX = 232_448         # dynamic shared memory one block may use
 _SMEM_SM = 233_472                # shared memory of one SM (228 KB)
 _SMEM_RESERVED = 1_024            # reserved by the runtime per block
 _FWD_TC_BLOCKS_PER_SM = 2         # __launch_bounds__ of gconv3x3_fwd_tc
+_FWD_TF32_BLOCKS_PER_SM = 1       # __launch_bounds__ of gconv3x3_fwd_tf32
+_TF32_SLOT = 2 * TC_WIDTH * TC_WIDTH * 4   # one tap's weight, hi + lo
+_TF32_SLOTS = 3                   # the forward's weight ring
 
 
 class _Libs(NamedTuple):
@@ -142,12 +146,13 @@ def build(verbose: bool = False) -> _Libs:
     tc.mdd_gconv3x3_fwd_tc.argtypes = [p, p, p] + [i] * 5 + [p]
     tc.mdd_gconv3x3_wgrad_tc.argtypes = [p, p, p, p] + [i] * 6 + [p]
     tc.mdd_gconv3x3_tc_smem.argtypes = [i, i]
+    tf32.mdd_gconv3x3_fwd_tf32.argtypes = [p, p, p, p] + [i] * 5 + [p]
     tf32.mdd_gconv3x3_wgrad_tf32.argtypes = [p, p, p, p] + [i] * 6 + [p]
-    tf32.mdd_gconv3x3_tf32_smem.argtypes = [i]
+    tf32.mdd_gconv3x3_tf32_smem.argtypes = [i, i]
     for fn in (simt.mdd_gconv3x3_fwd, simt.mdd_gconv3x3_wgrad,
                tc.mdd_gconv3x3_fwd_tc, tc.mdd_gconv3x3_wgrad_tc,
-               tc.mdd_gconv3x3_tc_smem, tf32.mdd_gconv3x3_wgrad_tf32,
-               tf32.mdd_gconv3x3_tf32_smem):
+               tc.mdd_gconv3x3_tc_smem, tf32.mdd_gconv3x3_fwd_tf32,
+               tf32.mdd_gconv3x3_wgrad_tf32, tf32.mdd_gconv3x3_tf32_smem):
         fn.restype = i
     _libs = _Libs(simt, tc, tf32)
     return _libs
@@ -178,6 +183,15 @@ def tf32_smem_bytes(width: int) -> int:
             + _TF32_ROW)
 
 
+def tf32_fwd_smem_bytes(width: int) -> int:
+    """Dynamic shared memory of the float32 tensor-core forward at image
+    width ``width``: ``fwd_smem_bytes`` of gconv3x3_tf32.cu (align slack,
+    a ring of 3 tap weights as hi + lo, 2 x halo, zero row)."""
+    halo = TC_TILE + 2 * width + 2
+    return (1024 + _TF32_SLOTS * _TF32_SLOT + 2 * halo * _TF32_ROW
+            + _TF32_ROW)
+
+
 def use_tc(kind: str, dtype: torch.dtype, cpg: int, opg: int,
            width: int) -> bool:
     """The dispatch rule: bfloat16 with 64 input and 64 output channels per
@@ -191,21 +205,25 @@ def use_tc(kind: str, dtype: torch.dtype, cpg: int, opg: int,
 
 def use_tf32(kind: str, dtype: torch.dtype, cpg: int, opg: int,
              width: int) -> bool:
-    """The float32 side of the rule: a float32 wgrad with 64 input and 64
-    output channels per group goes to the three-pass TF32 kernel, unless
+    """The float32 side of the rule: float32 with 64 input and 64 output
+    channels per group goes to the three-pass TF32 kernel of ``kind``
+    ("fwd", also the dgrad, or "wgrad"), unless the image is so wide that
     its halo tiles exceed a block's shared memory."""
-    return (kind == "wgrad" and dtype == torch.float32 and cpg == TC_WIDTH
-            and opg == TC_WIDTH and tf32_smem_bytes(width) <= _SMEM_BLOCK_MAX)
+    smem = {"fwd": tf32_fwd_smem_bytes, "wgrad": tf32_smem_bytes}[kind]
+    return (dtype == torch.float32 and cpg == TC_WIDTH and opg == TC_WIDTH
+            and smem(width) <= _SMEM_BLOCK_MAX)
 
 
-def fwd_tc_blocks(m: int, groups: int, width: int, sms: int = _SMS) -> int:
-    """Persistent blocks per group of the tensor-core forward.  Block b of
-    a group walks pixel tiles b, b + blocks, b + 2 * blocks, ...; as many
-    blocks as fit on the card at once, evened out so every block walks the
-    same number of tiles (or one fewer)."""
+def fwd_tc_blocks(m: int, groups: int, smem: int, blocks_per_sm: int,
+                  sms: int = _SMS) -> int:
+    """Persistent blocks per group of a tensor-core forward whose block
+    takes ``smem`` bytes of dynamic shared memory and whose launch bounds
+    allow ``blocks_per_sm`` blocks on an SM.  Block b of a group walks
+    pixel tiles b, b + blocks, b + 2 * blocks, ...; as many blocks as fit
+    on the card at once, evened out so every block walks the same number
+    of tiles (or one fewer)."""
     tiles = math.ceil(m / TC_TILE)
-    per_sm = min(_FWD_TC_BLOCKS_PER_SM, _SMEM_SM // (
-        tc_smem_bytes("fwd", width) + _SMEM_RESERVED))
+    per_sm = min(blocks_per_sm, _SMEM_SM // (smem + _SMEM_RESERVED))
     cap = max(1, sms * max(per_sm, 1) // groups)
     rounds = math.ceil(tiles / cap)
     return max(1, math.ceil(tiles / rounds))
@@ -266,6 +284,31 @@ def tf32_split(t: torch.Tensor):
     return hi, rna(t - hi)
 
 
+def gconv3x3_fwd_tf32_ref(x: torch.Tensor, w: torch.Tensor,
+                          groups: int) -> torch.Tensor:
+    """The arithmetic of gconv3x3_tf32.cu's forward, for the CPU tests: the
+    plain conv of the TF32 parts of x and w in float32, hi*hi + (hi*lo +
+    lo*hi), the kernel's two accumulators.  Nothing on the card calls it:
+    :func:`gconv3x3_ref` is the kernel's yardstick there."""
+    xh, xl = tf32_split(x)
+    wh, wl = tf32_split(w)
+    return gconv3x3_ref(xh, wh, groups) + (gconv3x3_ref(xh, wl, groups)
+                                           + gconv3x3_ref(xl, wh, groups))
+
+
+def tf32_fwd_weight(w: torch.Tensor, groups: int):
+    """The forward's pre-pass in plain PyTorch, for the CPU tests: HWIO w
+    (3, 3, 64, groups * 64) -> (hi, lo), each (groups, 9, 64 o, 64 c), the
+    weight of each group and tap K-major (an output's 64 input channels
+    contiguous), before gconv3x3_tf32.cu's 128-byte swizzle."""
+    hi, lo = tf32_split(w)
+
+    def kmajor(t):
+        return (t.reshape(9, TC_WIDTH, groups, TC_WIDTH)
+                .permute(2, 0, 3, 1).contiguous())
+    return kmajor(hi), kmajor(lo)
+
+
 def rot_swap(w: torch.Tensor, groups: int) -> torch.Tensor:
     """HWIO grouped kernel -> the kernel of the transposed (input-grad)
     conv: spatially rotated, per-group in/out channels swapped."""
@@ -310,7 +353,7 @@ def _route(name: str, kind: str, tc: Optional[bool], dtype: torch.dtype,
             "tf32" if use_tf32(kind, dtype, cpg, opg, width) else None)
     if tc and fits is None:
         raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 "
-                         f"(or a float32 wgrad) with {TC_WIDTH} channels per "
+                         f"or float32 with {TC_WIDTH} channels per "
                          f"group in and out and width <= its shared memory; "
                          f"got {dtype}, {cpg}->{opg}, width {width}")
     route = (fits or "simt") if tc is None else (fits if tc else "simt")
@@ -349,10 +392,21 @@ def gconv3x3_fwd(x: torch.Tensor, w: torch.Tensor, groups: int,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "tc":
-            blocks = fwd_tc_blocks(n * h * wd, groups, wd, _sm_count(x.device))
+            blocks = fwd_tc_blocks(n * h * wd, groups,
+                                   tc_smem_bytes("fwd", wd),
+                                   _FWD_TC_BLOCKS_PER_SM, _sm_count(x.device))
             _launched("gconv3x3_fwd_tc", libs.tc.mdd_gconv3x3_fwd_tc(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, groups,
                 blocks, stream))
+        elif route == "tf32":
+            blocks = fwd_tc_blocks(n * h * wd, groups,
+                                   tf32_fwd_smem_bytes(wd),
+                                   _FWD_TF32_BLOCKS_PER_SM, _sm_count(x.device))
+            wp = torch.empty(2 * w.numel(), dtype=torch.float32,
+                             device=x.device)
+            _launched("gconv3x3_fwd_tf32", libs.tf32.mdd_gconv3x3_fwd_tf32(
+                x.data_ptr(), w.data_ptr(), wp.data_ptr(), y.data_ptr(), n,
+                h, wd, groups, blocks, stream))
         else:
             _launched("gconv3x3_fwd", libs.simt.mdd_gconv3x3_fwd(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, groups,

@@ -217,7 +217,8 @@ def test_tc_plans_cover_every_pixel_once(shape, G, sms):
     n, h, w, _ = shape
     m = n * h * w
     tiles = math.ceil(m / tg.TC_TILE)
-    blocks = tg.fwd_tc_blocks(m, G, w, sms)
+    blocks = tg.fwd_tc_blocks(m, G, tg.tc_smem_bytes("fwd", w),
+                              tg._FWD_TC_BLOCKS_PER_SM, sms)
     walks = [range(b, tiles, blocks) for b in range(blocks)]
     assert sorted(t for walk in walks for t in walk) == list(range(tiles))
     assert max(map(len, walks)) - min(map(len, walks)) <= 1

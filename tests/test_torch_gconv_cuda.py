@@ -1,6 +1,6 @@
 """The grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
 ``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores, and ``csrc/gconv3x3_tf32.cu``,
-the float32 wgrad on the tensor cores) on the card.
+the float32 forward and wgrad on the tensor cores) on the card.
 
 Marker ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -57,8 +57,9 @@ def test_kernels_match_plain_on_card(card, dtype, G, cpg, opg):
            tg.gconv3x3_wgrad_ref(xf, ybf, G), dtype)
     torch.cuda.synchronize()
     # bfloat16 at group width 64 takes the tensor-core routes, float32 at
-    # that width the TF32 wgrad
-    fwd = "_tc" if tg.use_tc("fwd", dtype, cpg, opg, 7) else ""
+    # that width the TF32 ones
+    fwd = ("_tc" if tg.use_tc("fwd", dtype, cpg, opg, 7) else
+           "_tf32" if tg.use_tf32("fwd", dtype, cpg, opg, 7) else "")
     wgrad = ("_tc" if tg.use_tc("wgrad", dtype, cpg, opg, 7) else
              "_tf32" if tg.use_tf32("wgrad", dtype, cpg, opg, 7) else "")
     assert tg.LAUNCHES["gconv3x3_fwd" + fwd] == before["gconv3x3_fwd" + fwd] + 2
@@ -165,8 +166,69 @@ def test_float32_double_backward_on_tf32_wgrad(card):
     got = hvp(tg.gconv3x3)
     assert tg.LAUNCHES["gconv3x3_wgrad_tf32"] > before["gconv3x3_wgrad_tf32"]
     assert tg.LAUNCHES["gconv3x3_wgrad"] == before["gconv3x3_wgrad"]
+    # every forward, dgrad and double-backward conv on the TF32 forward
+    assert tg.LAUNCHES["gconv3x3_fwd_tf32"] > before["gconv3x3_fwd_tf32"]
+    assert tg.LAUNCHES["gconv3x3_fwd"] == before["gconv3x3_fwd"]
     for a, b in zip(got, hvp(tg.gconv3x3_ref)):
         _close(a, b, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,H,W,G", [
+    (100, 28, 28, 2),   # NFNet-L0's three grouped-conv shapes at mb=100
+    (100, 14, 14, 6),
+    (100, 7, 7, 6),
+    (3, 9, 5, 2),       # H != W, N*H*W = 135: one full tile and a 7-pixel tail
+    (11, 7, 7, 6),      # W = 7: a 128-pixel tile spans ~2.6 images; G = 6
+    (3, 7, 7, 3),       # 147 pixels: one full tile and a 19-pixel tail
+    (2, 1, 13, 2),      # H = 1: the dy = +-1 taps are all padding
+    (5, 17, 1, 2),      # W = 1: the dx = +-1 taps are all padding
+    (2, 3, 64, 2),      # W = 64: the widest image the TF32 forward takes
+])
+def test_tf32_fwd_matches_plain_on_card(card, N, H, W, G):
+    """The float32 tensor-core forward (three TF32 passes) and the input
+    gradient (the same kernel on rot_swap(w)) against the plain version in
+    float32 with TF32 off, to the float32 tolerance; the route takes it
+    unasked, and the CUDA-core forward stays reachable by ``tc=False``."""
+    c = G * 64
+    x = torch.randn(N, H, W, c, device="cuda", generator=card)
+    w = torch.randn(3, 3, 64, c, device="cuda", generator=card) / 24.0
+    ybar = torch.randn(N, H, W, c, device="cuda", generator=card)
+    want = tg.gconv3x3_ref(x, w, G)
+    xr = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(tg.gconv3x3_ref(xr, w, G), xr, ybar)
+    before = dict(tg.LAUNCHES)
+    _close(tg.gconv3x3_fwd(x, w, G), want, torch.float32)
+    _close(tg.gconv3x3_fwd(ybar, tg.rot_swap(w, G), G), dx, torch.float32)
+    _close(tg.gconv3x3_fwd(x, w, G, tc=False), want, torch.float32)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES["gconv3x3_fwd_tf32"] == before["gconv3x3_fwd_tf32"] + 2
+    assert tg.LAUNCHES["gconv3x3_fwd"] == before["gconv3x3_fwd"] + 1
+
+
+@pytest.mark.cuda
+def test_tf32_fwd_is_bit_identical_on_repeat(card):
+    """No split-K and no atomics: two calls give the same bits."""
+    x = torch.randn(100, 14, 14, 384, device="cuda", generator=card)
+    w = torch.randn(3, 3, 64, 384, device="cuda", generator=card) / 24.0
+    assert torch.equal(tg.gconv3x3_fwd(x, w, 6), tg.gconv3x3_fwd(x, w, 6))
+
+
+@pytest.mark.cuda
+def test_tf32_fwd_widest_width_and_one_past(card):
+    """The widest width the rule admits runs on the TF32 forward; one
+    pixel wider goes to the CUDA cores; both match the plain version."""
+    widest = max(w for w in range(1, 512)
+                 if tg.use_tf32("fwd", torch.float32, 64, 64, w))
+    for width, key in ((widest, "gconv3x3_fwd_tf32"),
+                       (widest + 1, "gconv3x3_fwd")):
+        x = torch.randn(2, 3, width, 128, device="cuda", generator=card)
+        w = torch.randn(3, 3, 64, 128, device="cuda", generator=card) / 24.0
+        before = dict(tg.LAUNCHES)
+        _close(tg.gconv3x3_fwd(x, w, 2), tg.gconv3x3_ref(x, w, 2),
+               torch.float32)
+        assert tg.LAUNCHES[key] == before[key] + 1
+        assert sum(tg.LAUNCHES.values()) == sum(before.values()) + 1
 
 
 @pytest.mark.cuda
