@@ -14,7 +14,9 @@ each of which raises on failure:
    each for ``sm_90a``, started together) and print the card's name and
    power limit.
 2. Hold each kernel against its plain PyTorch version at NFNet-L0's three
-   grouped-conv shapes (mini-batch 100): the forward conv, the input
+   grouped-conv shapes, at mini-batch 100 (the distill step's and the
+   eval students'), 128 (the expert trainer's and the test passes') and
+   104 (a 1000-image test split's tail): the forward conv, the input
    gradient (the forward kernel on the rotated weight) and the weight
    gradient; the CUDA-core kernels in float32 and bfloat16, the bf16
    tensor-core kernels in bfloat16, the TF32 forward and wgrad in
@@ -38,20 +40,36 @@ each of which raises on failure:
    read around it.
 6. One ``evaluate_synset`` of that path with the kernels against the same
    on ``F.conv2d`` (TF32 off), from the same init, seeds and batches.
-7. The distill entry point: ``cli/distill.main`` at full width (NFNet-L0
-   224^2 + ProjectionHead, BERT-base random-init from the seed) on 1000
-   synthetic pairs and a 1000 x 5 test split: the caption caches through
-   the port's BERT, the init from real pairs, one buffer file of 2 experts
-   x 3 epochs written first through the port's buffer writer, 4 headline
-   outer steps (the tensor-core kernels), eval blocks of 2 parallel
-   float32 students at iterations 0 and 3 (the float32 kernels), the
-   artifacts, a checkpoint at 2.  Every ``Grand_Loss`` finite;
+7. The expert entry point: ``cli/buffer.main`` at full width (NFNet-L0
+   224^2, batch 128, BERT-base random-init from the seed for the caption
+   caches, the kernels on), four runs: (a) 2 experts x 2 epochs, float32,
+   ``--device_augment`` (RandAugment on the card), 1000 synthetic pairs
+   and a 1000 x 5 test split; on 256 pairs and 256 x 5, one epoch each,
+   (b) 1 expert in bfloat16 (the bf16 tensor-core kernels), (c) 2
+   experts with ``--parallel_experts=2``, (d) 1 expert with
+   ``--text_trainable`` (BERT-base in the step).  Each run's buffers read
+   back through the port's ``load_buffer`` at the towers' widths, every
+   logged metric finite and in [0, 100], launches exactly 19 x (2 x train
+   batches + test batches) forwards and 19 x train batches wgrads per
+   expert-epoch, in the train dtype's route (the test passes float32);
+   wall time per epoch, images/s and peak memory printed.  Then 3 steps
+   of that trainer at batch 128 with ``--device_augment``, in float32 and
+   in bfloat16, with the kernels against the same on ``F.conv2d`` (TF32
+   off), from the same init, seeds and crops; and the on-card RandAugment
+   against the same plan on the CPU, op by op.
+8. The distill entry point: ``cli/distill.main`` at full width (NFNet-L0
+   224^2 + ProjectionHead, BERT-base random-init from the seed) on phase
+   7 (a)'s 1000 synthetic pairs, caption caches and buffers (2 experts x
+   3 snapshots), in its working directory: the init from real pairs, 4
+   headline outer steps (the tensor-core kernels), eval blocks of 2
+   parallel float32 students at iterations 0 and 3 (the float32 kernels),
+   the artifacts, a checkpoint at 2.  Every ``Grand_Loss`` finite;
    ``distilled_{0,3}.npz`` read back; the checkpoint reloaded bit for bit;
    every student's nine metrics finite and in [0, 100]; launches exactly
    4 x phase 3's per step plus 2 x phase 5's per block at 2 students.
 
 Phase 2 also times the CUDA-core kernels and the TF32 kernels in float32
-(the dtype of phases 4-7's eval students) beside cuDNN's float32 call with
+(the dtype of phases 4-8's eval students) beside cuDNN's float32 call with
 TF32 off and on.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
@@ -60,6 +78,7 @@ last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -85,6 +104,9 @@ HBM_BPS = 3.35e12    # H100 SXM device memory bytes/s
 # NFNet-L0's stride-1 grouped 3x3 sites at 224^2: (H, C, groups) -> count
 SITES = {(28, 128, 2): 3, (14, 384, 6): 11, (7, 384, 6): 5}
 BATCH = 100
+# phase 2 also checks the expert trainer's batch and its test split's tail
+# (1000 = 7 x 128 + 104)
+CHECK_BATCHES = (BATCH, 128, 104)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # x max|plain|; see below
 TPU_SRC = "multimodal_dataset_distillation_tpu/ops/pallas_gconv.py"
 L2_BYTES = 50e6      # H100 L2; the cold timings rotate through 3x this
@@ -179,47 +201,27 @@ def check_kernels(gc):
     passes keep ~2^-22 of each product, where one pass would miss by
     ~3e-4); bfloat16 1e-2 of it (the kernel rounds its float32 sum to
     bfloat16, 2^-9 relative, and the plain version is computed in float32
-    from the same bfloat16 operands)."""
+    from the same bfloat16 operands).  Each shape at every mini-batch of
+    ``CHECK_BATCHES`` (the tile walk and split plans follow it), timed at
+    ``BATCH``."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for (h, c, groups), sites in SITES.items():
         cpg = c // groups
-        x32 = torch.randn(BATCH, h, h, c, device="cuda", generator=gen)
         w32 = torch.randn(3, 3, cpg, c, device="cuda",
                           generator=gen) / math.sqrt(9 * cpg)
-        yb32 = torch.randn(BATCH, h, h, c, device="cuda", generator=gen)
-        print(f"shape x=({BATCH},{h},{h},{c}) groups={groups} "
-              f"({sites} sites per tower pass)", flush=True)
         row = {"shape": [BATCH, h, h, c], "groups": groups, "sites": sites}
-        for dtype, route in ((torch.float32, "simt"), (torch.float32, "tf32"),
-                             (torch.bfloat16, "simt"), (torch.bfloat16, "tc")):
-            x, w, yb = x32.to(dtype), w32.to(dtype), yb32.to(dtype)
-            xf, wf, ybf = x.float(), w.float(), yb.float()
-            tc = route != "simt"
-            tag = f"{route}_{'f32' if dtype == torch.float32 else 'bf16'}"
-            print(f"  {route} kernels:", flush=True)
-            y = gc.gconv3x3_fwd(x, w, groups, tc=tc)
-            row[f"fwd_err_{tag}"] = check(
-                "fwd", y, gc.gconv3x3_ref(xf, wf, groups), dtype)
-            if route == "tf32" and not torch.equal(
-                    y, gc.gconv3x3_fwd(x, w, groups, tc=True)):
-                raise AssertionError("TF32 forward differs on repeat")
-            xr = xf.clone().requires_grad_()
-            (dx_plain,) = torch.autograd.grad(gc.gconv3x3_ref(xr, wf, groups),
-                                              xr, ybf)
-            row[f"dgrad_err_{tag}"] = check(
-                "dgrad", gc.gconv3x3_fwd(yb, gc.rot_swap(w, groups), groups,
-                                         tc=tc), dx_plain, dtype)
-            dw = gc.gconv3x3_wgrad(x, yb, groups, tc=tc)
-            row[f"wgrad_err_{tag}"] = check(
-                "wgrad", dw, gc.gconv3x3_wgrad_ref(xf, ybf, groups), dtype)
-            if tc and not torch.equal(dw, gc.gconv3x3_wgrad(x, yb, groups,
-                                                            tc=True)):
-                raise AssertionError("tensor-core wgrad differs on repeat")
+        inputs = {b: [torch.randn(b, h, h, c, device="cuda", generator=gen)
+                      for _ in range(2)] for b in CHECK_BATCHES}
+        for batch, (x32, yb32) in inputs.items():
+            print(f"shape x=({batch},{h},{h},{c}) groups={groups} "
+                  f"({sites} sites per tower pass)", flush=True)
+            check_shape(gc, row, x32, w32, yb32, groups)
         # bf16 (the main path's dtype) on both routes; float32 (the dtype
-        # of phases 4-7's eval students) on the CUDA cores and on TF32
+        # of phases 4-8's eval students) on the CUDA cores and on TF32
+        (x32, yb32), inputs = inputs[BATCH], None
         time_row(gc, row, x32.bfloat16(), w32.bfloat16(), yb32.bfloat16(),
                  groups, {"fwd": ("simt", "tc"), "wgrad": ("simt", "tc")},
                  "", PEAK_BF16)
@@ -228,6 +230,39 @@ def check_kernels(gc):
                  "_f32", PEAK_FP32)
         rows.append(row)
     return rows
+
+
+def check_shape(gc, row, x32, w32, yb32, groups):
+    """Each route's forward, dgrad and wgrad at one shape against the plain
+    version; ``row`` keeps each error's largest over the shapes."""
+    for dtype, route in ((torch.float32, "simt"), (torch.float32, "tf32"),
+                         (torch.bfloat16, "simt"), (torch.bfloat16, "tc")):
+        x, w, yb = x32.to(dtype), w32.to(dtype), yb32.to(dtype)
+        xf, wf, ybf = x.float(), w.float(), yb.float()
+        tc = route != "simt"
+        tag = f"{route}_{'f32' if dtype == torch.float32 else 'bf16'}"
+        print(f"  {route} kernels:", flush=True)
+        y = gc.gconv3x3_fwd(x, w, groups, tc=tc)
+        errs = {"fwd": check("fwd", y, gc.gconv3x3_ref(xf, wf, groups),
+                             dtype)}
+        if route == "tf32" and not torch.equal(
+                y, gc.gconv3x3_fwd(x, w, groups, tc=True)):
+            raise AssertionError("TF32 forward differs on repeat")
+        xr = xf.clone().requires_grad_()
+        (dx_plain,) = torch.autograd.grad(gc.gconv3x3_ref(xr, wf, groups),
+                                          xr, ybf)
+        errs["dgrad"] = check(
+            "dgrad", gc.gconv3x3_fwd(yb, gc.rot_swap(w, groups), groups,
+                                     tc=tc), dx_plain, dtype)
+        dw = gc.gconv3x3_wgrad(x, yb, groups, tc=tc)
+        errs["wgrad"] = check(
+            "wgrad", dw, gc.gconv3x3_wgrad_ref(xf, ybf, groups), dtype)
+        if tc and not torch.equal(dw, gc.gconv3x3_wgrad(x, yb, groups,
+                                                        tc=True)):
+            raise AssertionError("tensor-core wgrad differs on repeat")
+        for kind, e in errs.items():
+            key = f"{kind}_err_{tag}"
+            row[key] = max(row.get(key, 0.0), e)
 
 
 def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
@@ -663,8 +698,306 @@ def compare_eval(gc, Config, syn, **kw):
     return out
 
 
+# phase 7's runs of the buffer CLI: (a) the buffers phase 8 distils from;
+# (b)-(d) the other routes, on a smaller split (width is what must be full)
+_SMALL = dict(synthetic_size=256, synthetic_test_size=256, num_experts=1,
+              train_epochs=1)
+EXPERT_RUNS = {
+    "a": {},
+    "b": dict(_SMALL, train_dtype="bfloat16", buffer_path="buffers_b"),
+    "c": dict(_SMALL, num_experts=2, parallel_experts=2,
+              device_augment=False, buffer_path="buffers_c"),
+    "d": dict(_SMALL, text_trainable=True, device_augment=False,
+              buffer_path="buffers_d"),
+}
+
+
+def expert_cfg(Config, run: str, **kw):
+    """Phase 7's configuration: the buffer CLI at full width (NFNet-L0 at
+    224^2 + ProjectionHead, batch 128, the kernels on, BERT-base random-init
+    from the seed for the caption caches), no pretrained tower; run (a) 2
+    experts x 2 epochs in float32 with the in-step augment on 1000
+    synthetic pairs and a 1000 x 5 test split (Flickr30K's test shape)."""
+    base = dict(dataset="synthetic", synthetic_size=1000,
+                synthetic_test_size=1000, image_encoder="nfnet",
+                image_size=224, text_encoder="bert",
+                text_encoder_config="base", text_pretrained=False,
+                image_pretrained=False, pallas_gconv=True, num_experts=2,
+                train_epochs=2, batch_size_train=128, batch_size_test=128,
+                k_test=128, lr_teacher_img=0.1, lr_teacher_txt=0.1,
+                device_augment=True, disable_wandb=True, seed=0,
+                name=f"phase7{run}", buffer_path="buffers",
+                save_dir="logged_files")
+    return Config(**{**base, **EXPERT_RUNS[run], **kw})
+
+
+def expert_launches(cfg) -> dict:
+    """Kernel launches of a buffer CLI run: per expert-epoch, every train
+    step runs each of the 19 grouped sites forward, its input gradient (the
+    stem lies upstream of every site) and its wgrad, in the train dtype
+    (float32: TF32, bfloat16: the bf16 tensor cores), and every test batch
+    runs them forward in float32.  The loader drops the last short train
+    batch."""
+    steps = cfg.synthetic_size // cfg.batch_size_train
+    tests = math.ceil(cfg.synthetic_test_size / cfg.batch_size_test)
+    n = cfg.num_experts * cfg.train_epochs * 19
+    out = dict.fromkeys(KERNELS, 0)
+    route = "tc" if cfg.train_dtype == "bfloat16" else "tf32"
+    out[f"gconv3x3_fwd_{route}"] += n * 2 * steps
+    out[f"gconv3x3_wgrad_{route}"] += n * steps
+    out["gconv3x3_fwd_tf32"] += n * tests
+    return out
+
+
+def expert_path(gc, Config, run: str, **kw):
+    """Phase 7, run ``run``: ``cli/buffer.main`` in the current directory;
+    launch counters zeroed just before and read just after.  Each epoch's
+    training and test pass, and BERT's cache encodes, timed on the host
+    clock between synchronizes, by wrapping the trainers' epochs and the
+    CLI's test.  The buffers read back through the port's ``load_buffer``
+    (``.pt`` and ``.npz`` the same, the towers' widths); every logged
+    metric finite, the recalls in [0, 100]."""
+    from multimodal_dataset_distillation_tpu_torch.cli import buffer as cli
+    from multimodal_dataset_distillation_tpu_torch.engine import expert
+    from multimodal_dataset_distillation_tpu_torch.engine.buffer_io import (
+        load_buffer)
+    from multimodal_dataset_distillation_tpu_torch.models import bert
+    from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
+        build_bi_encoder, build_trainable_text)
+
+    cfg = expert_cfg(Config, run, **kw)
+    times = {"train": [], "test": [], "encode": []}
+    now = time.perf_counter
+
+    def wrap(obj, name, key):
+        fn = getattr(obj, name)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = now()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[key].append(now() - t)
+            return out
+        setattr(obj, name, timed)
+        return obj, name, fn
+
+    saved = [wrap(c, "train_epoch_captions", "train") for c in (
+        expert.BiEncoderTrainer, expert.ParallelExpertTrainer,
+        expert.TrainableTextTrainer)]
+    saved += [wrap(cli, "_test", "test"),
+              wrap(bert.TextEncoder, "encode", "encode")]
+    try:
+        torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gc.reset_launches()
+        t0 = now()
+        indices = cli.main(cfg)
+        torch.cuda.synchronize()
+        wall = now() - t0
+        launches = dict(gc.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+    want = expert_launches(cfg)
+    if launches != want:
+        raise AssertionError(f"buffer CLI ({run}) launches {launches}, "
+                             f"expected {want}")
+    if indices != list(range(cfg.num_experts)):
+        raise AssertionError(f"buffer CLI ({run}) saved {indices}")
+    model = (build_trainable_text if cfg.text_trainable
+             else build_bi_encoder)(cfg, device="cpu")
+    towers = {"img": model.image_encoder,
+              "txt": (model.text_encoder if cfg.text_trainable
+                      else model.text_projection)}
+    widths = {}
+    for n in indices:
+        for kind, tower in towers.items():
+            stem = os.path.join(cli.expert_dir(cfg), f"{kind}_replay_buffer_"
+                                f"{n}")
+            (a,), (b,) = (load_buffer(stem + ext, tower)
+                          for ext in (".npz", ".pt"))
+            widths[kind] = a.shape[1]
+            if not (a.shape == (cfg.train_epochs + 1, sum(
+                    p.numel() for p in tower.parameters()))
+                    and np.isfinite(a).all() and np.array_equal(a, b)
+                    and not np.array_equal(a[0], a[-1])):
+                raise AssertionError(f"buffer CLI ({run}): {stem} holds "
+                                     f"{a.shape}, finite {np.isfinite(a).all()}")
+    with open(os.path.join(cfg.save_dir, f"{cfg.name}.jsonl")) as f:
+        logged = [r for r in map(json.loads, f) if "train_loss" in r]
+    if len(logged) != cfg.num_experts * cfg.train_epochs or not all(
+            math.isfinite(r["train_loss"]) and all(
+                math.isfinite(r[k]) and 0.0 <= r[k] <= 100.0
+                for k in METRIC_KEYS) for r in logged):
+        raise AssertionError(f"buffer CLI ({run}) logged {logged}")
+    # one train call per epoch (all experts of a lockstep group), one test
+    # pass per expert and epoch
+    images = (cfg.synthetic_size // cfg.batch_size_train
+              * cfg.batch_size_train * max(1, cfg.parallel_experts))
+    k = len(times["test"]) // len(times["train"])
+    epochs = [{"train_s": tr, "test_s": sum(times["test"][i * k:(i + 1) * k]),
+               "images_per_s": images / tr}
+              for i, tr in enumerate(times["train"])]
+    out = {"run": run, "train_dtype": cfg.train_dtype,
+           "device_augment": cfg.device_augment,
+           "parallel_experts": cfg.parallel_experts,
+           "text_trainable": cfg.text_trainable,
+           "experts": cfg.num_experts, "epochs": cfg.train_epochs,
+           "pairs": cfg.synthetic_size, "test_images": cfg.synthetic_test_size,
+           "wall_s": wall, "epoch_s": epochs, "bert_encode_s": times["encode"],
+           "max_memory_allocated_gib": peak, "buffer_widths": widths,
+           "launches": launches,
+           "train_loss": [r["train_loss"] for r in logged],
+           "r_mean": [r["r_mean"] for r in logged]}
+    print(f"buffer CLI ({run}): " + "; ".join(
+        f"epoch {i}: train {e['train_s']:.2f} s ({e['images_per_s']:.1f} "
+        f"images/s), test {e['test_s']:.2f} s" for i, e in enumerate(epochs))
+        + f"; wall {wall:.1f} s; peak {peak:.2f} GiB", flush=True)
+    print(f"buffer CLI ({run}): " + json.dumps(out), flush=True)
+    return out
+
+
+# the on-card augment's tolerances on the [0, 255] scale, against the CPU:
+# integer inputs and IEEE arithmetic make the histogram ops exact; the
+# blends as in the CPU tests; a float32 grid coordinate at 224 px is good to
+# ~2e-5 px, which a step of 255 between neighbours turns into ~5e-3 on
+# each side, where a wrong sign, fill or padding moves pixels by tens
+AUGMENT_TOL = {"autocontrast": 0.0, "equalize": 0.0, "brightness": 1e-4,
+               "sharpness": 1e-4}
+AFFINE_TOL = 5e-2
+
+
+def check_augment(images) -> dict:
+    """Phase 7, last: the on-card RandAugment against the same plan applied
+    on the CPU, op by op: one round in which every image of ``images``
+    (raw crops, (B, H, W, 3) on the card) draws the op, odd images with the
+    negated sign, at the trainer's level 5 and at 8 (where brightness and
+    sharpness are not the identity).  -> max abs error per op."""
+    from multimodal_dataset_distillation_tpu_torch.ops import (
+        randaugment_device as rd)
+
+    b, cpu = len(images), images.cpu()
+    out = {}
+    for k, fn in enumerate(rd.VL_DEVICE_OPS):
+        if fn is rd.identity:
+            continue
+        plan = rd.AugmentPlan(torch.full((b, 1), k),
+                              torch.ones(b, 1, dtype=torch.bool),
+                              (torch.arange(b) % 2 == 1)[:, None])
+        tol = AUGMENT_TOL.get(fn.__name__, AFFINE_TOL)
+        for m in (5, 8):
+            got = rd.apply_augment_plan(
+                images, rd.AugmentPlan(*(t.cuda() for t in plan)), m).cpu()
+            err = float((got - rd.apply_augment_plan(cpu, plan, m)).abs().max())
+            out[f"{fn.__name__}_{m}"] = err
+            if not err <= tol:
+                raise AssertionError(f"on-card {fn.__name__} at level {m}: "
+                                     f"max abs error {err} > {tol}")
+    print("augment card vs CPU: " + json.dumps(out), flush=True)
+    return out
+
+
+def compare_expert(gc, Config, steps: int = 3, **kw) -> dict:
+    """Phase 7, last: ``steps`` steps of the buffer CLI's trainer
+    (``BiEncoderTrainer.train_batch``) at run (a)'s batch of 128 raw crops
+    with ``--device_augment``, in float32 (the TF32 kernels) and in
+    bfloat16 (the bf16 tensor-core kernels), with the kernels and on
+    ``F.conv2d`` (TF32 off for convs and matmuls), from the same init,
+    generator seed and crops, so that both draw the same augment plans and
+    dropout masks on the card.  The skipinit gains are moved off zero, as
+    phase 3 does, so that the grouped convs shape every step's loss.  Then
+    :func:`check_augment` on the first batch.  Tolerances, float32 /
+    bfloat16: each tower's trained parameters 1e-4 (phase 6's) / 1e-3 in
+    relative error norm; the steps' update of the 19 grouped convs'
+    weights 1e-3 (phase 6's two-step update agreed to ~6e-6) / 5e-2.  In
+    bfloat16 each conv output is rounded, 2^-9 relative, after sums in
+    other orders, on both sides of 19 sites forward and back, so the two
+    runs' gradients part at that rounding."""
+    from multimodal_dataset_distillation_tpu_torch.cli.buffer import (
+        init_expert)
+    from multimodal_dataset_distillation_tpu_torch.data import get_dataset
+    from multimodal_dataset_distillation_tpu_torch.engine.expert import (
+        BiEncoderTrainer)
+    from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
+        build_bi_encoder)
+
+    def flat(d, names):
+        return torch.cat([d[n].double().reshape(-1).cpu() for n in names])
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = expert_cfg(Config, "a", synthetic_size=steps * 128,
+                     synthetic_test_size=128, **kw)
+    loader, _, _, _ = get_dataset(cfg)
+    rng = np.random.RandomState(cfg.seed)
+    batches = [(torch.as_tensor(images, device="cuda"),
+                rng.randn(len(images), 768).astype(np.float32))
+               for images, *_ in loader]
+    init = init_expert(build_bi_encoder(cfg, device="cpu"), cfg, cfg.seed)
+    for name, v in init.items():
+        if name.endswith("skipinit_gain"):
+            v.fill_(0.2 + 0.05 * rng.randn())
+    out = {"batches": [list(b[0].shape) for b in batches]}
+    for dtype, route in (("float32", "tf32"), ("bfloat16", "tc")):
+        res = {}
+        for gconv in (True, False):
+            model = build_bi_encoder(cfg.replace(pallas_gconv=gconv))
+            trainer = BiEncoderTrainer(
+                model, init, lr_img=cfg.lr_teacher_img,
+                lr_txt=cfg.lr_teacher_txt, seed=cfg.seed,
+                compute_dtype=dtype, device_augment=True)
+            gc.reset_launches()
+            losses = [trainer.train_batch(*b)[0] for b in batches]
+            torch.cuda.synchronize()
+            res[gconv] = {"launches": dict(gc.LAUNCHES),
+                          "loss": [float(x) for x in losses],
+                          "params": {n: p.detach() for n, p in
+                                     model.named_parameters()}}
+            if gconv:
+                sites = [f"{n}.weight" for n, m in model.named_modules()
+                         if getattr(m, "use_gconv", False)]
+        a, b = res[True], res[False]
+        want = dict.fromkeys(KERNELS, 0)
+        want[f"gconv3x3_fwd_{route}"] = 19 * 2 * len(batches)
+        want[f"gconv3x3_wgrad_{route}"] = 19 * len(batches)
+        if (a["launches"] != want or any(b["launches"].values())
+                or len(sites) != 19):
+            raise AssertionError(f"expert trainer ({dtype}) launches: "
+                                 f"kernels {a['launches']}, expected {want}, "
+                                 f"F.conv2d {b['launches']}; {len(sites)} "
+                                 f"grouped sites")
+        o = {"launches": a["launches"], "loss_kernel": a["loss"],
+             "loss_plain": b["loss"]}
+        tol = (1e-4, 1e-3) if dtype == "float32" else (1e-3, 5e-2)
+        for tower in ("image_encoder", "text_projection"):
+            names = [n for n in a["params"] if n.startswith(tower + ".")]
+            ka, kb = flat(a["params"], names), flat(b["params"], names)
+            o[f"{tower}_rel_err"] = float((ka - kb).norm() / kb.norm())
+            if not (torch.isfinite(ka).all()
+                    and o[f"{tower}_rel_err"] <= tol[0]):
+                raise AssertionError(f"expert trainer ({dtype}): trained "
+                                     f"{tower} differs: {o}")
+        w0 = flat(init, sites)
+        ua, ub = (flat(r["params"], sites) - w0 for r in (a, b))
+        o["gconv_update_rel_err"] = float((ua - ub).norm() / ub.norm())
+        o["gconv_update_rel_norm"] = float(ub.norm() / w0.norm())
+        if not (ub.norm() > 0 and o["gconv_update_rel_err"] <= tol[1]):
+            raise AssertionError(f"expert trainer ({dtype}): grouped-conv "
+                                 f"updates differ: {o}")
+        print(f"expert trainer {dtype} kernels vs F.conv2d: " + json.dumps(o),
+              flush=True)
+        out[dtype] = o
+    out["augment_max_abs_err"] = check_augment(batches[0][0])
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
 def distill_cli_cfg(Config, **kw):
-    """Phase 7's configuration: the distill CLI at full width (NFNet-L0 at
+    """Phase 8's configuration: the distill CLI at full width (NFNet-L0 at
     224^2 + ProjectionHead, BERT-base random-init from the seed), the
     headline step (nq=100, mb=100, syn_steps=8, bf16, forward-HVP, the
     kernels), 4 outer steps with eval blocks of 2 parallel students at
@@ -681,52 +1014,20 @@ def distill_cli_cfg(Config, **kw):
                 Iteration=3, eval_it=3, num_eval=2, epoch_eval_train=1,
                 batch_train=128, batch_size_test=128, k_test=128,
                 parallel_eval=True, std=True, draw=True, ckpt_it=2,
-                disable_wandb=True, seed=0, name="phase7",
+                disable_wandb=True, seed=0, name="phase8",
                 buffer_path="buffers", save_dir="logged_files")
     return Config(**{**base, **kw})
 
 
-def write_buffers(cfg, n_experts: int = 2, epochs: int = 2) -> str:
-    """One buffer file pair of ``n_experts`` trajectories of ``epochs``+1
-    snapshots each, through the port's write side: snapshots from the
-    seeded init with skipinit gains at 0.2 +- 0.05 (as phase 3), then small
-    seeded steps.  -> the buffer directory."""
-    from multimodal_dataset_distillation_tpu_torch.engine.buffer_io import (
-        save_trajectories_pt)
-    from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
-        build_bi_encoder, init_bi_encoder)
-
-    model = init_bi_encoder(build_bi_encoder(cfg, device="cpu"), cfg.seed)
-    rng = np.random.RandomState(cfg.seed)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("skipinit_gain"):
-                p.fill_(0.2 + 0.05 * rng.randn())
-    os.makedirs(cfg.buffer_path, exist_ok=True)
-    for kind, tower in (("img", model.image_encoder),
-                        ("txt", model.text_projection)):
-        trajs = []
-        for _ in range(n_experts):
-            snap = [p.detach().numpy().copy() for p in tower.parameters()]
-            traj = [snap]
-            for _ in range(epochs):
-                traj.append([x + np.float32(0.01) * np.asarray(
-                    rng.randn(*x.shape), np.float32) for x in traj[-1]])
-            trajs.append(traj)
-        save_trajectories_pt(os.path.join(
-            cfg.buffer_path, f"{kind}_replay_buffer_0.pt"), trajs)
-    return cfg.buffer_path
-
-
 def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
-    """Phase 7: ``cli/distill.main`` in a temporary working directory;
-    launch counters zeroed just before and read just after.  Times on the
-    host clock, by wrapping the CLI's calls: BERT's encodes (each ends in a
-    copy to the host), set-up (from the call to the first eval block) and
-    its calls, the outer steps between the eval blocks (from step 1's call
-    to the read of step 2's result at the second block), and each eval
-    block (from its read of the synthetic set to its last artifact) and
-    its calls."""
+    """Phase 8: ``cli/distill.main`` in the current directory, on the
+    buffers and caption caches phase 7's run (a) left there; launch
+    counters zeroed just before and read just after.  Times on the host
+    clock, by wrapping the CLI's calls: set-up (from the call to the first
+    eval block) and its calls, the outer steps between the eval blocks
+    (from step 1's call to the read of step 2's result at the second
+    block), and each eval block (from its read of the synthetic set to its
+    last artifact) and its calls."""
     from multimodal_dataset_distillation_tpu_torch.cli import distill as cli
     from multimodal_dataset_distillation_tpu_torch.cli.eval_distilled import (
         load_distilled)
@@ -738,7 +1039,7 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
         build_bi_encoder)
 
     cfg = distill_cli_cfg(Config, **kw)
-    spans = []   # (label, start, end, number of captions or None)
+    spans = []   # (label, start, end)
     rec = {}
     now = time.perf_counter
 
@@ -748,8 +1049,7 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
         def run(*a, **k):
             t = now()
             out = fn(*a, **k)
-            spans.append((name, t, now(), len(a[1]) if name == "encode"
-                          else None))
+            spans.append((name, t, now()))
             return out
         setattr(obj, name, run)
         return obj, name, fn
@@ -764,8 +1064,7 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
         rec["ckpt_rng"] = distiller.rng.get_state().clone()
         return saved_ckpt(path, distiller, it, **k)
 
-    saved = [wrap(bert.TextEncoder, "encode"),
-             wrap(bert, "init_bert"), wrap(bert, "_try_hf_tokenizer"),
+    saved = [wrap(bert, "init_bert"), wrap(bert, "_try_hf_tokenizer"),
              wrap(eng.Distiller, "step_traj"),
              wrap(eng.Distiller, "syn_arrays")]
     saved += [wrap(cli, name) for name in (
@@ -775,58 +1074,51 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
     saved_ckpt = cli.save_distill_checkpoint
     saved.append((cli, "save_distill_checkpoint", saved_ckpt))
     cli.save_distill_checkpoint = save_ckpt
-    cwd = os.getcwd()
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            os.chdir(tmp)
-            t = now()
-            write_buffers(cfg)
-            buffers_s = now() - t
-            torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            gc.reset_launches()
-            t0 = now()
-            distiller, history = cli.main(cfg)
-            torch.cuda.synchronize()
-            wall = now() - t0
-            launches = dict(gc.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            run = os.path.join(cfg.save_dir, cfg.dataset, cfg.name)
-            with open(os.path.join(cfg.save_dir, f"{cfg.name}.jsonl")) as f:
-                losses = {r["step"]: r["Grand_Loss"] for r in map(json.loads, f)
-                          if "Grand_Loss" in r}
-            student = cli._student_cfg(cfg)
-            model = build_bi_encoder(student)
-            sets = {}
-            for it in (0, cfg.Iteration):
-                img, txt, payload = load_distilled(
-                    os.path.join(run, f"distilled_{it}.npz"))
-                sets[it] = (img.shape, txt.shape, float(payload["syn_lr_img"]))
-                if not (img.shape == (cfg.num_queries, cfg.image_size,
-                                      cfg.image_size, 3)
-                        and txt.shape == (cfg.num_queries,
-                                          model.text_embedding)
-                        and np.isfinite(img).all() and np.isfinite(txt).all()):
-                    raise AssertionError(f"distilled_{it}.npz: {sets[it]}")
-            # the checkpoint reloads bit for bit into a fresh Distiller
-            fresh = eng.Distiller(student, model, np.zeros_like(img),
-                                  np.zeros_like(txt), device=cfg.device)
-            it_ckpt = load_distill_checkpoint(
-                os.path.join(run, f"distill_ckpt_{cfg.ckpt_it}.pt"), fresh)
-            same = it_ckpt == cfg.ckpt_it and torch.equal(
-                fresh.rng.get_state(), rec["ckpt_rng"])
-            for f, want in rec["ckpt"].items():
-                got = getattr(fresh.state, f)
-                pairs = zip(got, want) if f == "mom_lr" else [(got, want)]
-                same = same and all(torch.equal(a, b) for a, b in pairs)
-            if not same:
-                raise AssertionError("distill_ckpt_2.pt does not reload bit "
-                                     "for bit")
-            del fresh, distiller
+        torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gc.reset_launches()
+        t0 = now()
+        distiller, history = cli.main(cfg)
+        torch.cuda.synchronize()
+        wall = now() - t0
+        launches = dict(gc.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        run = os.path.join(cfg.save_dir, cfg.dataset, cfg.name)
+        with open(os.path.join(cfg.save_dir, f"{cfg.name}.jsonl")) as f:
+            losses = {r["step"]: r["Grand_Loss"] for r in map(json.loads, f)
+                      if "Grand_Loss" in r}
+        student = cli._student_cfg(cfg)
+        model = build_bi_encoder(student)
+        sets = {}
+        for it in (0, cfg.Iteration):
+            img, txt, payload = load_distilled(
+                os.path.join(run, f"distilled_{it}.npz"))
+            sets[it] = (img.shape, txt.shape, float(payload["syn_lr_img"]))
+            if not (img.shape == (cfg.num_queries, cfg.image_size,
+                                  cfg.image_size, 3)
+                    and txt.shape == (cfg.num_queries,
+                                      model.text_embedding)
+                    and np.isfinite(img).all() and np.isfinite(txt).all()):
+                raise AssertionError(f"distilled_{it}.npz: {sets[it]}")
+        # the checkpoint reloads bit for bit into a fresh Distiller
+        fresh = eng.Distiller(student, model, np.zeros_like(img),
+                              np.zeros_like(txt), device=cfg.device)
+        it_ckpt = load_distill_checkpoint(
+            os.path.join(run, f"distill_ckpt_{cfg.ckpt_it}.pt"), fresh)
+        same = it_ckpt == cfg.ckpt_it and torch.equal(
+            fresh.rng.get_state(), rec["ckpt_rng"])
+        for f, want in rec["ckpt"].items():
+            got = getattr(fresh.state, f)
+            pairs = zip(got, want) if f == "mom_lr" else [(got, want)]
+            same = same and all(torch.equal(a, b) for a, b in pairs)
+        if not same:
+            raise AssertionError("distill_ckpt_2.pt does not reload bit "
+                                 "for bit")
+        del fresh, distiller
     finally:
-        os.chdir(cwd)
         for obj, name, fn in reversed(saved):
             setattr(obj, name, fn)
     if sorted(losses) != list(range(cfg.Iteration + 1)) or not all(
@@ -849,31 +1141,23 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
     if launches != want:
         raise AssertionError(f"distill CLI launches {launches}, expected "
                              f"{want}")
-    (_, a0, a1, n_test), (_, b0, b1, n_train) = [
-        sp for sp in spans if sp[0] == "encode"][:2]
-    t_test, t_train = a1 - a0, b1 - b0
-    syn_t = [(t, u) for name, t, u, _ in spans if name == "syn_arrays"]
-    viz_t = [u for name, _, u, _ in spans if name == "save_visualizations"]
-    step_t = sorted(t for name, t, _, _ in spans if name == "step_traj")
+    syn_t = [(t, u) for name, t, u in spans if name == "syn_arrays"]
+    viz_t = [u for name, _, u in spans if name == "save_visualizations"]
+    step_t = sorted(t for name, t, _ in spans if name == "step_traj")
 
     def by_label(lo, hi):
         """Seconds per wrapped call inside [lo, hi] (nested calls are also
-        counted inside their callers: the 100-caption encode inside
-        get_images_texts, the inits inside build and the trainer)."""
+        counted inside their callers: the inits inside build and the
+        trainer)."""
         out = {}
-        for name, t, u, _ in spans:
+        for name, t, u in spans:
             if lo <= t and u <= hi and name not in ("syn_arrays",):
                 out[name] = out.get(name, 0.0) + (u - t)
         return out
 
     out = {
-        "wall_s": wall, "buffers_write_s": buffers_s,
-        "setup_s": syn_t[0][0] - t0,
+        "wall_s": wall, "setup_s": syn_t[0][0] - t0,
         "setup_by_call_s": by_label(t0, syn_t[0][0]),
-        "bert_test_cache": {"captions": n_test, "s": t_test,
-                            "captions_per_s": n_test / t_test},
-        "bert_train_cache": {"captions": n_train, "s": t_train,
-                             "captions_per_s": n_train / t_train},
         # steps 1 and 2: from step 1's call to the read of the set at the
         # second eval block, which waits for step 2
         "cli_steps_per_s": 2 / (syn_t[1][1] - step_t[1]),
@@ -888,11 +1172,7 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
         "distilled": {str(k): v for k, v in sets.items()},
         "results": [[{k: float(v) for k, v in r.items()} for r in res]
                     for _, res in history]}
-    print(f"distill CLI: BERT-{cfg.text_encoder_config} test cache "
-          f"{n_test} captions in "
-          f"{t_test:.2f} s ({n_test / t_test:.0f}/s), train cache {n_train} "
-          f"in {t_train:.2f} s ({n_train / t_train:.0f}/s); set-up "
-          f"{out['setup_s']:.1f} s; {out['cli_steps_per_s']:.4f} outer "
+    print(f"distill CLI: set-up {out['setup_s']:.1f} s; {out['cli_steps_per_s']:.4f} outer "
           f"steps/s through the CLI against {phase3_steps_per_s:.4f} through "
           f"the Distiller API; eval blocks "
           f"{', '.join(f'{v:.1f}' for v in out['eval_block_s'])} s; peak "
@@ -901,16 +1181,18 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
     return out
 
 
-def kernel_entries(rows, launches, launches_eval, launches_cli):
+def kernel_entries(rows, launches, launches_eval, launches_expert,
+                   launches_cli):
     """One entry per kernel, summed over one tower pass (19 sites, mb=100),
     in the dtype of the paths that launch it: float32 for the CUDA-core
     kernels (their bf16 times beside, as ``*_bf16``) and the TF32 kernels
-    (phases 4-7; their bound: three passes at the TF32 rate, the CUDA
+    (phases 4-8; their bound: three passes at the TF32 rate, the CUDA
     cores' float32 bound beside as ``bound_fp32_ms``), bf16 for the bf16
     tensor-core ones.  ``launches``: of the bf16 tensor-core kernels phase
     3's (the bf16 main path), of the float32 ones phase 4's (the float32
     outer step); ``launches_eval``: phase 5's (the eval path);
-    ``launches_cli``: phase 7's (the distill CLI, all routes)."""
+    ``launches_expert``: phase 7's per run of the buffer CLI;
+    ``launches_cli``: phase 8's (the distill CLI, all routes)."""
     def total(key):
         return sum(r["sites"] * r[key] for r in rows)
 
@@ -931,6 +1213,8 @@ def kernel_entries(rows, launches, launches_eval, launches_cli):
             "dtype": "float32" if sfx else "bfloat16",
             "launches": launches[name],
             "launches_eval": launches_eval[name],
+            "launches_expert": {run: n[name]
+                                for run, n in launches_expert.items()},
             "launches_cli": launches_cli[name],
             "max_abs_err": err(kind, f"{route}{sfx or '_bf16'}"),
             "ms": total(f"{kind}_{route}{sfx}_ms"), "ms_cold": cold,
@@ -1003,14 +1287,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     compare_eval(gc, Config, syn)
     torch.cuda.empty_cache()
-    cli = distill_cli_path(gc, Config, path["steps_per_s"])
+    experts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in EXPERT_RUNS:   # (a) alone: phase 8 reads its buffers
+            work = os.path.join(tmp, "a" if run == "a" else "small")
+            os.makedirs(work, exist_ok=True)
+            with contextlib.chdir(work):
+                experts[run] = expert_path(gc, Config, run)
+            torch.cuda.empty_cache()
+        compare_expert(gc, Config)
+        torch.cuda.empty_cache()
+        with contextlib.chdir(os.path.join(tmp, "a")):
+            cli = distill_cli_path(gc, Config, path["steps_per_s"])
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
-    print(json.dumps({"kernels": kernel_entries(rows, launches,
-                                                ev["launches"],
-                                                cli["launches"])}),
-          flush=True)
+    print(json.dumps({"kernels": kernel_entries(
+        rows, launches, ev["launches"],
+        {run: e["launches"] for run, e in experts.items()},
+        cli["launches"])}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -99,8 +99,6 @@ def check_supported(cfg: Config, ignore: Sequence[str] = ()) -> None:
     entry point never reads (as its JAX counterpart does not), skipped."""
     queued = [
         (cfg.zca, "--zca", "ops/zca.py", 17),
-        (cfg.device_augment, "--device_augment",
-         "make_train_transform_raw and ops/randaugment_device.py", 12),
         (bool(cfg.mesh_shape), "--mesh_shape", "parallel/mesh.py", 18),
         (cfg.text_encoder == "clip", "--text_encoder=clip",
          "models/clip_text.py", 16),

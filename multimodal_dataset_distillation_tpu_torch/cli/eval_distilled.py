@@ -33,10 +33,10 @@ from ..engine.eval import evaluate_synset, evaluate_synset_parallel
 from ..models.clip_model import build_bi_encoder
 from .distill import check_supported, make_eval_initializer
 
-#: flags that the JAX eval_distilled never reads (the ZCA, the expert
-#: trainer's device augmentation, the mesh and the space-to-depth stem are
-#: the distill and buffer CLIs' only), so this entry point ignores them too
-EVAL_IGNORES = ("--zca", "--device_augment", "--mesh_shape", "--stem_s2d")
+#: flags that the JAX eval_distilled never reads (the ZCA, the mesh and the
+#: space-to-depth stem are the distill and buffer CLIs' only), so this entry
+#: point ignores them too
+EVAL_IGNORES = ("--zca", "--mesh_shape", "--stem_s2d")
 
 
 def load_distilled(path: str):

@@ -29,19 +29,18 @@ from .transforms import (
     make_test_transform,
     make_train_transform,
     make_train_transform_native,
-    unported_train_transform,
+    make_train_transform_raw,
 )
 
 
 def create_dataset(cfg: Config, min_scale: float = 0.5):
     """(train, val, test) with reference transforms (data/__init__.py:193-227).
 
-    ``native_decode`` (the ``Config`` default) installs the C++ decode
-    pool's train transform; under ``device_augment`` the train transform is
-    :func:`~.transforms.unported_train_transform`, which raises when a train
-    item is read."""
+    ``device_augment`` installs the raw-crop train transform (RandAugment
+    and normalisation run in the train step), else ``native_decode`` (the
+    ``Config`` default) the C++ decode pool's."""
     if cfg.device_augment:
-        t_train = unported_train_transform("device_augment")
+        t_train = make_train_transform_raw(cfg.image_size, min_scale)
     elif cfg.native_decode:
         t_train = make_train_transform_native(cfg.image_size, min_scale)
     else:

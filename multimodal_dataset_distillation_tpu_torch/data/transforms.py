@@ -8,10 +8,9 @@ transforms.py:24-94``, the reference's torchvision pipelines
 
 :func:`make_train_transform_native` (``:136-167`` there) is the
 ``native_decode`` train transform over raw file bytes through the C++
-decode pool (:mod:`..native`).  The raw-crop transform of the in-step
-augment (``device_augment``, ``make_train_transform_raw`` there) is not
-ported yet: :func:`unported_train_transform` stands in for it and raises
-when called.
+decode pool (:mod:`..native`); :func:`make_train_transform_raw` (``:97-133``
+there) the raw crops of ``--device_augment``, whose RandAugment and
+normalisation run in the train step (:mod:`..ops.randaugment_device`).
 """
 
 from __future__ import annotations
@@ -77,17 +76,44 @@ def random_resized_crop(img: Image.Image, size: int,
     return img.resize((size, size), Image.BICUBIC, box=(x, y, x + cw, y + ch))
 
 
+def _crop_flip(image_size: int, min_scale: float) -> Callable:
+    """RandomResizedCrop + HFlip of a PIL image, or of file bytes: JPEG
+    bytes through the C++ pool when it is built, anything else (or a
+    decode the pool fails) through PIL.  -> uint8 HWC; the crop, then the
+    flip, drawn from the per-item stream."""
+    scale = (min_scale, 1.0)
+
+    def pil_path(img: Image.Image) -> np.ndarray:
+        img = random_resized_crop(img.convert("RGB"), image_size, scale=scale)
+        if _rng().random_sample() < 0.5:
+            img = img.transpose(Image.FLIP_LEFT_RIGHT)
+        return np.asarray(img)
+
+    def crop_flip(data) -> np.ndarray:
+        if isinstance(data, Image.Image):
+            return pil_path(data)
+        if native.get_fastimage() is not None and native.is_jpeg(data):
+            dims = native.read_dims(data)
+            if dims is not None:
+                x, y, cw, ch = sample_crop_params(dims[0], dims[1],
+                                                  scale=scale)
+                flip = bool(_rng().random_sample() < 0.5)
+                out, failed = native.decode_batch(
+                    [(data, (x, y, cw, ch), flip)], image_size, n_threads=1)
+                if not failed:
+                    return out[0]
+        return pil_path(Image.open(io.BytesIO(data)))
+
+    return crop_flip
+
+
 def make_train_transform(image_size: int = 224,
                          min_scale: float = 0.5) -> Callable:
     aug = RandomAugment(2, 5, isPIL=True, augs=VL_AUGS)
+    crop_flip = _crop_flip(image_size, min_scale)
 
     def transform(img: Image.Image) -> np.ndarray:
-        img = img.convert("RGB")
-        img = random_resized_crop(img, image_size, scale=(min_scale, 1.0))
-        if _rng().random_sample() < 0.5:
-            img = img.transpose(Image.FLIP_LEFT_RIGHT)
-        img = aug(img)
-        return normalize(np.asarray(img))
+        return normalize(np.asarray(aug(Image.fromarray(crop_flip(img)))))
 
     return transform
 
@@ -108,38 +134,21 @@ def make_train_transform_native(image_size: int = 224,
     PIL input, a non-JPEG, or a decode the pool fails takes the PIL path
     (:func:`make_train_transform`).  Same sampling distributions as that
     path; bilinear against bicubic resampling is the one difference."""
-    aug = RandomAugment(2, 5, isPIL=True, augs=VL_AUGS)
-    pil_path = make_train_transform(image_size, min_scale)
-
-    def transform(data) -> np.ndarray:
-        if isinstance(data, Image.Image):
-            return pil_path(data)
-        if native.get_fastimage() is not None and native.is_jpeg(data):
-            dims = native.read_dims(data)
-            if dims is not None:
-                x, y, cw, ch = sample_crop_params(
-                    dims[0], dims[1], scale=(min_scale, 1.0))
-                flip = bool(_rng().random_sample() < 0.5)
-                out, failed = native.decode_batch(
-                    [(data, (x, y, cw, ch), flip)], image_size, n_threads=1)
-                if not failed:
-                    img = aug(Image.fromarray(out[0]))
-                    return normalize(np.asarray(img))
-        return pil_path(Image.open(io.BytesIO(data)).convert("RGB"))
-
+    transform = make_train_transform(image_size, min_scale)
     transform.accepts_bytes = True
     return transform
 
 
-def unported_train_transform(mode: str) -> Callable:
-    """The train transform of ``--device_augment``: raises on its first
-    call.  Flows that never index the train split (the eval CLI) run;
-    training in that mode fails loudly rather than on another transform."""
+def make_train_transform_raw(image_size: int = 224,
+                             min_scale: float = 0.5) -> Callable:
+    """Crop, resize and flip only, as raw float32 [0, 255] HWC: the train
+    transform of ``--device_augment``, where RandAugment and the CLIP
+    normalisation run in the train step.  The crop and flip are those of
+    :func:`make_train_transform_native`, with the same draws."""
+    crop_flip = _crop_flip(image_size, min_scale)
 
-    def transform(data):
-        raise NotImplementedError(
-            f"the {mode} train transform (raw crops for the in-step "
-            f"augment, ops/randaugment_device.py) is not ported yet; leave "
-            f"--device_augment unset")
+    def transform(data) -> np.ndarray:
+        return crop_flip(data).astype(np.float32)
 
+    transform.accepts_bytes = True
     return transform

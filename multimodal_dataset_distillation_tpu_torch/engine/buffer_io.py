@@ -12,14 +12,18 @@ list of snapshots.  Two formats:
 * ``.pt``: the reference container, a list of trajectories of snapshots of
   per-parameter tensors in ``module.parameters()`` order and torch
   layouts: this package's flat order, so snapshots concatenate as stored.
-  Each snapshot's shape signature is checked against the module first, so
-  a file in another order is refused instead of read permuted.
+  The JAX package writes a tree it has no reference order for (a BERT
+  tower's, ``--text_trainable``) as the JAX tree's leaves instead, in its
+  ravel order and flax shapes.  A snapshot's shape signature is checked
+  against both orders of the module, so a file in another order is
+  refused instead of read permuted.
 
 Writing keeps each format's order, so the JAX ``load_buffer`` reads what
 this module writes: ``.npz`` in JAX ravel order (:func:`~..models.convert.
-flat_to_jax`), ``.pt`` in registration order (the reference order the JAX
-package's codec identifies).  Identifying the JAX package's native-order
-``.pt`` files comes with a later slice.
+flat_to_jax`), ``.pt`` in registration order for the image tower and the
+projection head (the reference order the JAX package's codec identifies)
+and as the JAX tree's leaves for BERT, as the JAX ``save_expert`` writes
+them.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.convert import flat_from_jax, flat_to_jax
+from ..models.bert import BertEncoder
+from ..models.convert import flat_from_jax, flat_to_jax, jax_leaves, jax_shapes
 
 
 def flatten_snapshot(snapshot: Sequence) -> np.ndarray:
@@ -54,8 +59,8 @@ def save_trajectory_npz(path: str, trajectory: Sequence[Sequence],
 
 def save_trajectories_pt(path: str,
                          trajectories: Sequence[Sequence[Sequence]]) -> None:
-    """``torch.save`` of a list of trajectories of per-parameter tensors, in
-    registration order (the reference container, buffer.py:104-115)."""
+    """``torch.save`` of a list of trajectories of per-parameter tensors, as
+    given (the reference container, buffer.py:104-115)."""
     # np.array, not ascontiguousarray: the latter promotes 0-d parameters
     # (skipinit gains) to (1,) and breaks the shape signature readers check
     torch.save([[[torch.from_numpy(np.array(x, copy=True)) for x in snap]
@@ -86,7 +91,11 @@ def save_expert(save_dir: str, img_trajectory: Sequence[Sequence],
                                  ("txt", txt_trajectory, txt_template)):
         stem = os.path.join(save_dir, f"{kind}_replay_buffer_{n}")
         if write_pt:
-            save_trajectories_pt(stem + ".pt", [traj])
+            pt = traj
+            if isinstance(template, BertEncoder):   # no reference order
+                pt = [jax_leaves(flat_to_jax(flatten_snapshot(s), template),
+                                 template) for s in traj]
+            save_trajectories_pt(stem + ".pt", [pt])
         if write_npz:
             save_trajectory_npz(stem + ".npz", traj, template)
     return n
@@ -100,21 +109,25 @@ def load_trajectory_npz(path: str) -> np.ndarray:
 
 def load_trajectories_pt(path: str, template: nn.Module) -> List[np.ndarray]:
     """Load a ``.pt`` buffer -> list of stacked flat trajectories (E+1, P)
-    in ``template``'s order."""
+    in ``template``'s order, from snapshots in registration order or in the
+    JAX tree's leaf order."""
     want = [tuple(p.shape) for p in template.parameters()]
+    native = jax_shapes(template)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     out = []
     for ti, traj in enumerate(payload):
         snaps = []
         for snap in traj:
             shapes = [tuple(t.shape) for t in snap]
-            if shapes != want:
+            if shapes not in (want, native):
                 raise ValueError(
-                    f"{path}: trajectory {ti} does not hold the module's "
-                    f"parameters in registration order (first stored shapes "
-                    f"{shapes[:4]}..., expected {want[:4]}...)")
+                    f"{path}: trajectory {ti} holds the module's parameters "
+                    f"neither in registration order nor in the JAX tree's "
+                    f"order (first stored shapes {shapes[:4]}..., expected "
+                    f"{want[:4]}... or {native[:4]}...)")
             snaps.append(torch.cat([t.reshape(-1).float() for t in snap]))
-        out.append(torch.stack(snaps).numpy())
+        flat = torch.stack(snaps).numpy()
+        out.append(flat if shapes == want else flat_from_jax(flat, template))
     return out
 
 

@@ -1,13 +1,14 @@
 """Bi-encoder training: the expert phase's and the synthetic-set eval's SGD.
 
-Counterpart of ``multimodal_dataset_distillation_tpu/engine/expert.py:
-34-445`` (reference ``buffer.py`` + ``epoch``).  Two SGD optimizers, image
+Counterpart of ``multimodal_dataset_distillation_tpu/engine/expert.py``
+(reference ``buffer.py`` + ``epoch``).  Two SGD optimizers, image
 tower and text projection, stepped per batch exactly as the reference
 steps them (``epoch_original.py:53-57``, ``buffer.py:59-60``).  The frozen
 text encoder runs outside: batches carry cached text embeddings.
 
-Dropout and DropPath draw from one ``torch.Generator`` per trainer, seeded
-at :meth:`BiEncoderTrainer.reset`, so one seed gives one run.  Loss and
+Dropout, DropPath and the ``--device_augment`` plan draw from one
+``torch.Generator`` per trainer, seeded at :meth:`BiEncoderTrainer.reset`,
+so one seed gives one run.  Loss and
 accuracy stay on the device until the end of an epoch, which reads them
 once.
 """
@@ -21,7 +22,9 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from ..models.clip_model import VLBiEncoder
+from ..data.transforms import CLIP_MEAN, CLIP_STD
+from ..models.clip_model import VLBiEncoder, VLBiEncoderTrainableText
+from ..ops.randaugment_device import random_augment
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -31,9 +34,14 @@ def torch_sgd(params: Iterable[torch.Tensor], lr: float,
               weight_decay: float = 0.0) -> torch.optim.SGD:
     """torch's SGD: g += wd * p, then the momentum trace (whose first value
     is g), then p -= lr * trace; the JAX package's optax chain
-    add_decayed_weights -> trace -> scale(-lr)."""
-    return torch.optim.SGD(params, lr=lr, momentum=momentum,
-                           weight_decay=weight_decay)
+    add_decayed_weights -> trace -> scale(-lr).  ``lr`` may be negative, as
+    there (a learned LR the outer loop drove below zero): torch refuses one
+    only at construction, so it is set after."""
+    opt = torch.optim.SGD(params, lr=abs(lr), momentum=momentum,
+                          weight_decay=weight_decay)
+    for group in opt.param_groups:
+        group["lr"] = lr
+    return opt
 
 
 def _epoch_means(per: List[Tuple[torch.Tensor, torch.Tensor, int]]
@@ -59,18 +67,30 @@ class BiEncoderTrainer:
     gradients reach the float32 masters through the cast; the image tower
     computes in bfloat16 and the text projection in float32 from
     bfloat16-rounded weights (flax's dtype promotion in the JAX package).
+
+    ``device_augment`` (``--device_augment``): images arrive as raw [0, 255]
+    crops, and each step draws a RandAugment(2, 5) plan from the trainer's
+    generator (before any dropout draw), augments on the device, applies
+    the CLIP normalisation and only then the bfloat16 cast.
     """
+
+    #: the submodule the text optimizer steps and the text snapshot holds
+    text_tower = "text_projection"
 
     def __init__(self, model: VLBiEncoder, variables: Optional[StateDict] = None,
                  *, lr_img: float, lr_txt: float, momentum: float = 0.0,
                  weight_decay: float = 0.0, seed: int = 0,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32",
+                 device_augment: bool = False):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or "
                              f"bfloat16")
         self.model = model
         self.device = next(model.parameters()).device
         self.compute_dtype = compute_dtype
+        self.device_augment = device_augment
+        self._mean, self._std = (torch.as_tensor(v, device=self.device)
+                                 for v in (CLIP_MEAN, CLIP_STD))
         self.momentum, self.weight_decay = momentum, weight_decay
         self.reset(variables, seed=seed, lr_img=lr_img, lr_txt=lr_txt)
 
@@ -99,8 +119,9 @@ class BiEncoderTrainer:
         self.momentum, self.weight_decay = momentum, weight_decay
         self.opt_img = torch_sgd(self.model.image_encoder.parameters(),
                                  self.lr_img, momentum, weight_decay)
-        self.opt_txt = torch_sgd(self.model.text_projection.parameters(),
-                                 self.lr_txt, momentum, weight_decay)
+        self.opt_txt = torch_sgd(
+            getattr(self.model, self.text_tower).parameters(), self.lr_txt,
+            momentum, weight_decay)
 
     def _loss(self, images: torch.Tensor, texts: torch.Tensor):
         kw = {"train": True, "generator": self.generator}
@@ -118,11 +139,23 @@ class BiEncoderTrainer:
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One SGD step on (B, H, W, 3) images and (B, D) text features
         (arrays or tensors); -> (loss, acc) on the device."""
-        images = torch.as_tensor(images, dtype=torch.float32,
-                                 device=self.device)
         texts = torch.as_tensor(text_feats, dtype=torch.float32,
                                 device=self.device)
-        loss, acc = self._loss(images, texts)
+        return self._step(self._loss(self._images(images), texts))
+
+    def _images(self, images) -> torch.Tensor:
+        """The step's input images on the device (augmented and normalised
+        under ``device_augment``)."""
+        images = torch.as_tensor(images, dtype=torch.float32,
+                                 device=self.device)
+        if self.device_augment:
+            images = random_augment(images, self.generator)
+            images = (images / 255.0 - self._mean) / self._std
+        return images
+
+    def _step(self, out: Tuple[torch.Tensor, torch.Tensor]
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        loss, acc = out
         self.opt_img.zero_grad(set_to_none=True)
         self.opt_txt.zero_grad(set_to_none=True)
         loss.backward()
@@ -152,7 +185,7 @@ class BiEncoderTrainer:
 
     def snapshot_text_params(self) -> List[np.ndarray]:
         return [p.detach().cpu().numpy().copy()
-                for p in self.model.text_projection.parameters()]
+                for p in getattr(self.model, self.text_tower).parameters()]
 
 
 class ParallelExpertTrainer:
@@ -232,3 +265,42 @@ class ParallelExpertTrainer:
 
     def snapshot_text_params(self, k: int) -> List[np.ndarray]:
         return self.trainers[k].snapshot_text_params()
+
+
+class TrainableTextTrainer(BiEncoderTrainer):
+    """The ``--text_trainable`` expert (buffer.py:49-50): the text optimizer
+    covers the BERT tower and the projection stays frozen at its init (the
+    reference's optimizer groups); captions are tokenized on the host and
+    padded to ``pad_to`` tokens.  float32, no in-step augment (as the JAX
+    trainer).  The text snapshot is the BERT tower."""
+
+    text_tower = "text_encoder"
+
+    def __init__(self, model: VLBiEncoderTrainableText,
+                 variables: Optional[StateDict] = None, **kw):
+        model.text_projection.requires_grad_(False)
+        super().__init__(model, variables, **kw)
+
+    def train_batch(self, images, input_ids, attention_mask
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One SGD step on (B, H, W, 3) images and (B, N) token ids and
+        mask; -> (loss, acc) on the device."""
+        ids, mask = (torch.as_tensor(np.asarray(t), dtype=torch.long,
+                                     device=self.device)
+                     for t in (input_ids, attention_mask))
+        return self._step(self.model(self._images(images), ids, mask,
+                                     train=True, generator=self.generator))
+
+    def train_epoch_captions(self, loader, tokenize: Callable,
+                             pad_to: int = 64) -> Tuple[float, float]:
+        """``tokenize(captions) -> (ids, mask)``, padded or cut to
+        ``pad_to`` tokens."""
+        per = []
+        for batch in loader:
+            ids, mask = tokenize(list(batch[1]))
+            n = min(ids.shape[1], pad_to)
+            out = np.zeros((2, len(ids), pad_to), np.int64)
+            out[0, :, :n], out[1, :, :n] = ids[:, :n], mask[:, :n]
+            per.append((*self.train_batch(batch[0], out[0], out[1]),
+                        len(batch[0])))
+        return _epoch_means(per)

@@ -5,27 +5,31 @@ raveled, conv kernels HWIO, Dense kernels (in, out), gains (out,), SE as
 Dense); this package keeps timm names in registration order and torch
 layouts (OIHW, (out, in), gains (out, 1, 1, 1), SE as 1x1 convs).  This
 module maps one to the other, for :class:`~.nfnet.NormFreeNet`,
-:class:`~.zoo.ImageTower` and :class:`~.projection.ProjectionHead`
-(the port's own copy of the mapping in ``models/import_torch.py:127-176``
-and ``models/torch_order.py`` there).
+:class:`~.zoo.ImageTower`, :class:`~.projection.ProjectionHead` and
+:class:`~.bert.BertEncoder` (the port's own copy of the mapping in
+``models/import_torch.py:127-176`` and ``models/torch_order.py`` there; the
+BERT names are those of ``models/bert.py`` there).
 
 * :func:`params_from_jax` turns a JAX parameter tree (numpy leaves) into
   the module's state dict.
 * :func:`flat_from_jax` / :func:`flat_to_jax` map a JAX ravel-order flat
   vector (``.npz`` buffers, ``Distiller.unroll`` outputs) to and from the
-  module's flat order, over the last axis.
+  module's flat order, over the last axis; :func:`jax_shapes` /
+  :func:`jax_leaves` give the JAX tree's leaves in that order.
 * :func:`bert_state_dict_from_jax` turns the JAX ``BertEncoder`` tree into
   the state dict of :class:`~.bert.BertEncoder`.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from .bert import BertEncoder
 from .layers import WSConv
 
 # flax's auto-name of the network inside the JAX ImageTower
@@ -58,6 +62,24 @@ def _jax_module_path(mod_name: str) -> Tuple[str, ...]:
     return tuple(path)
 
 
+# BertEncoder's per-layer modules -> the JAX BertLayer's names
+_BERT_LAYER = {"attention.output.dense": "attention_output",
+               "attention.output.LayerNorm": "attention_norm",
+               "intermediate.dense": "intermediate", "output.dense": "output",
+               "output.LayerNorm": "output_norm"}
+
+
+def _bert_module_path(mod_name: str) -> Tuple[str, ...]:
+    """BertEncoder module name (HF's) -> flax module path."""
+    if mod_name.startswith("embeddings."):
+        rest = mod_name[len("embeddings."):]
+        return ("embeddings_norm",) if rest == "LayerNorm" else (rest,)
+    i, rest = re.fullmatch(r"encoder\.layer\.(\d+)\.(.+)", mod_name).groups()
+    if rest.startswith("attention.self."):
+        return (f"layer{i}", "attention", rest.rsplit(".", 1)[1])
+    return (f"layer{i}", _BERT_LAYER[rest])
+
+
 def _leaf(mod: nn.Module, pname: str) -> Tuple[str, str]:
     """(flax leaf name, layout kind) of a module's direct parameter."""
     if pname != "weight":
@@ -70,6 +92,8 @@ def _leaf(mod: nn.Module, pname: str) -> Tuple[str, str]:
         return "kernel", "linear"
     if isinstance(mod, nn.LayerNorm):
         return "scale", "plain"
+    if isinstance(mod, nn.Embedding):
+        return "embedding", "plain"
     raise TypeError(f"no JAX counterpart for {type(mod).__name__}.weight")
 
 
@@ -97,13 +121,15 @@ def _jax_shape(kind: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
 def _entries(module: nn.Module):
     """[(name, torch shape, flax path, flax shape, kind)] in the order of
     ``module.named_parameters()`` (pre-order, direct parameters first)."""
+    path_of = (_bert_module_path if isinstance(module, BertEncoder)
+               else _jax_module_path)
     out = []
     for mod_name, mod in module.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
             leaf, kind = _leaf(mod, pname)
             shape = tuple(p.shape)
             out.append((f"{mod_name}.{pname}" if mod_name else pname, shape,
-                        _jax_module_path(mod_name) + (leaf,),
+                        path_of(mod_name) + (leaf,),
                         _jax_shape(kind, shape), kind))
     return out
 
@@ -124,14 +150,33 @@ def params_from_jax(tree: Mapping[str, Any],
     return sd
 
 
+def _jax_order(module: nn.Module):
+    """The entries in the JAX tree's leaf order: jax.flatten_util.ravel_pytree
+    visits dict keys in sorted order at every level, the lexicographic
+    order of the key paths."""
+    return sorted(_entries(module), key=lambda e: e[2])
+
+
+def jax_shapes(module: nn.Module) -> List[Tuple[int, ...]]:
+    """Shapes of the JAX tree's leaves, in its ravel order."""
+    return [jshape for _, _, _, jshape, _ in _jax_order(module)]
+
+
+def jax_leaves(flat: np.ndarray, module: nn.Module) -> List[np.ndarray]:
+    """A JAX ravel-order flat vector -> the JAX tree's leaves (its order
+    and shapes)."""
+    shapes = jax_shapes(module)
+    sizes = [int(np.prod(s, dtype=np.int64)) for s in shapes]
+    return [x.reshape(s) for x, s in zip(
+        np.split(np.asarray(flat), np.cumsum(sizes)[:-1]), shapes)]
+
+
 def _permutation(module: nn.Module) -> np.ndarray:
     """perm with port_flat = jax_flat[perm]."""
     entries = _entries(module)
-    # jax.flatten_util.ravel_pytree visits dict keys in sorted order at
-    # every level: the lexicographic order of the key paths
     offsets = {}
     off = 0
-    for _, _, path, jshape, _ in sorted(entries, key=lambda e: e[2]):
+    for _, _, path, jshape, _ in _jax_order(module):
         offsets[path] = off
         off += int(np.prod(jshape, dtype=np.int64))
     pieces = []

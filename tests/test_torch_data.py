@@ -166,20 +166,48 @@ def test_create_dataset_synthetic_same():
     _assert_same_batches(_batches(t_loaders[0]), _batches(j_loaders[0]))
 
 
+def _encoded(item, fmt):
+    import io
+    buf = io.BytesIO()
+    Image.fromarray(np.asarray(_image(item).resize((40, 28)))).save(
+        buf, format=fmt)
+    return buf.getvalue()
+
+
 @pytest.mark.parametrize("mode", [dict(device_augment=True),
                                   dict(device_augment=True,
                                        native_decode=False)])
 def test_unported_train_transform_raises(mode):
-    """``device_augment`` installs a train transform that raises on its
-    first call, with ``native_decode`` (the default) on or off: the eval
-    split works.  (``native_decode`` alone installs the C++ decode pool's
-    transform: tests/test_torch_native.py.)"""
-    cfg = Config(dataset="synthetic", image_size=SIZE, synthetic_size=2,
-                 synthetic_test_size=2, **mode)
-    train, _, test = tdata.create_dataset(cfg)
-    assert test[0][0].shape == (SIZE, SIZE, 3)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train[0]
+    """``device_augment`` installs the raw-crop train transform, with
+    ``native_decode`` (the default) on or off, as the JAX ``create_dataset``
+    does: the same float32 [0, 255] crops as JAX ``make_train_transform_raw``
+    on the same seeded items, from the synthetic split's PIL images and
+    from JPEG (the C++ pool) and PNG (PIL) bytes; the eval split keeps the
+    test transform.  (Named from when this transform raised; ``native_decode``
+    alone: tests/test_torch_native.py.)"""
+    kw = dict(dataset="synthetic", image_size=SIZE, synthetic_size=3,
+              synthetic_test_size=2, **mode)
+    train, _, test = tdata.create_dataset(Config(**kw))
+    jtrain, _, jtest = jdata.create_dataset(JConfig(**kw))
+    np.testing.assert_array_equal(test[0][0], jtest[0][0])
+    raw, jraw = (m.make_train_transform_raw(SIZE)
+                 for m in (ttransforms, jtransforms))
+    cases = [(lambda i: train[i][0], lambda i: jtrain[i][0], i)
+             for i in range(3)]
+    cases += [(lambda i, f=f: raw(_encoded(i, f)),
+               lambda i, f=f: jraw(_encoded(i, f)), i)
+              for f in ("JPEG", "PNG") for i in (0, 1)]
+    for got_fn, want_fn, i in cases:
+        taugrng.seed_item(5, 1, i)
+        jaugrng.seed_item(5, 1, i)
+        try:
+            got, want = got_fn(i), want_fn(i)
+        finally:
+            taugrng.clear()
+            jaugrng.clear()
+        assert got.shape == (SIZE, SIZE, 3) and got.dtype == np.float32
+        assert 0.0 <= got.min() and got.max() <= 255.0
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.fixture(scope="module")

@@ -419,7 +419,7 @@ def test_port_buffers_load_in_jax_and_back(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(zca=True), dict(device_augment=True), dict(mesh_shape=(2,)),
+    dict(zca=True), dict(mesh_shape=(2,)),
     dict(text_encoder="clip"), dict(stem_s2d=True),
     dict(image_encoder="resnet18"), dict(transfer=True)])
 def test_queued_flags_raise_at_start_up(tmp_path, monkeypatch, flag):
@@ -429,6 +429,22 @@ def test_queued_flags_raise_at_start_up(tmp_path, monkeypatch, flag):
     monkeypatch.setattr(pcli, "get_dataset", no_data)
     with pytest.raises(NotImplementedError, match=r"ROADMAP A, item 1\d"):
         pcli.main(_cfg(tmp_path, **flag))
+
+
+def test_device_augment_is_accepted(tmp_path, monkeypatch):
+    """``--device_augment`` goes on to the data, as in the JAX distill CLI
+    (whose ``create_dataset`` then installs the raw-crop train transform:
+    tests/test_torch_data.py)."""
+    class DataRead(Exception):
+        pass
+
+    def data(cfg):
+        assert cfg.device_augment
+        raise DataRead
+
+    monkeypatch.setattr(pcli, "get_dataset", data)
+    with pytest.raises(DataRead):
+        pcli.main(_cfg(tmp_path, device_augment=True))
 
 
 def test_no_card_raises_and_never_falls_back(tmp_path, monkeypatch):
