@@ -67,13 +67,36 @@ each of which raises on failure:
    ``distilled_{0,3}.npz`` read back; the checkpoint reloaded bit for bit;
    every student's nine metrics finite and in [0, 100]; launches exactly
    4 x phase 3's per step plus 2 x phase 5's per block at 2 students.
+9. The zoo's towers (BERT-base random-init caption caches, synthetic
+   data, the kernels on).  (d) first: the CUDA-core kernels at
+   NF-RegNet-B1's four grouped shapes (8 channels per group, 11/23/45/92
+   groups, 56^2 to 7^2) in float32 and bfloat16 at mini-batches 100 and
+   128 against the plain versions, timed beside cuDNN and the bound; one
+   float32 NF-RegNet-B1 outer step (mb=25, syn_steps=2) with the kernels
+   against ``F.conv2d``, held as phase 4.  (a) ViT-Tiny/16, NF-ResNet50,
+   NF-RegNet-B1 and ResNet-18-GN at 224^2 and ConvNet at 32^2, each through
+   ``cli/buffer.main`` (1 expert x 2 epochs, float32, batch 128, 256 pairs,
+   a 256 x 5 test split; buffers read back at the tower's width) and then
+   ``cli/distill.main`` on those buffers (2 headline outer steps: nq=100,
+   mb=100, syn_steps=8, bf16; one eval block of 1 float32 student at
+   iteration 0); seconds per epoch, images/s, outer steps/s and peak
+   memory per tower.  (b) ResNet-50 (BatchNorm) through the buffer CLI, 1
+   epoch: all 53 running averages moved; the distill CLI refuses it before
+   reading data.  (c) ``cli/eval_distilled.main`` on phase 3's distilled
+   set under ViT, NF-ResNet50, NF-RegNet-B1, ResNet-50, ConvNet and NFNet-L0
+   with ``--transfer``, 2 students each, on the 1000 x 5 test split.
+   Launches exact in every run: NF-RegNet-B1's 16 sites on the CUDA-core
+   kernels in either dtype, no kernel for the towers without grouped
+   convs.
 
 Phase 2 also times the CUDA-core kernels and the TF32 kernels in float32
 (the dtype of phases 4-8's eval students) beside cuDNN's float32 call with
 TF32 off and on.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
-last ``{"ok": true, "device": {...}}``.
+Then a ``{"kernels": [...]}`` line (the CUDA-core kernels' numbers at
+NF-RegNet-B1's sites, their phase-2 numbers at NFNet-L0's shapes beside),
+the ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -123,11 +146,34 @@ KERNELS = {
 # runs 8 forward-kernel and 4 wgrad-kernel calls per inner step
 MAIN_PATH_PER_STEP = {"gconv3x3_fwd_tc": 19 * 8 * 8,
                       "gconv3x3_wgrad_tc": 19 * 4 * 8}
-# the same per inner step of a float32 outer step (phase 4)
-F32_PER_INNER_STEP = {"gconv3x3_fwd_tf32": 19 * 8,
-                      "gconv3x3_wgrad_tf32": 19 * 4}
 METRIC_KEYS = ("txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1",
                "img_r5", "img_r10", "img_r_mean", "r_mean")
+# stride-1 grouped 3x3 sites per tower pass, of the towers that have them:
+# NFNet-L0's at 64 channels per group (the tensor-core kernels) and
+# NF-RegNet-B1's at 8 (the CUDA-core kernels, in both dtypes)
+TOWER_SITES = {"nfnet": 19, "nf_regnet": 16}
+# NF-RegNet-B1's sites at 224^2: (H, C, groups) -> count
+REGNET_SITES = {(56, 88, 11): 1, (28, 184, 23): 3, (14, 360, 45): 6,
+                (7, 736, 92): 6}
+
+
+def site_launches(encoder: str, dtype: str, fwd: int, wgrad: int) -> dict:
+    """Kernel launches of ``fwd`` forward-kernel and ``wgrad`` wgrad calls
+    at each grouped site of ``encoder`` in ``dtype``, by kernel."""
+    out = dict.fromkeys(KERNELS, 0)
+    n = TOWER_SITES.get(encoder, 0)
+    if encoder == "nf_regnet":
+        keys = ("gconv3x3_fwd", "gconv3x3_wgrad")
+    else:
+        route = "tf32" if dtype == "float32" else "tc"
+        keys = (f"gconv3x3_fwd_{route}", f"gconv3x3_wgrad_{route}")
+    out[keys[0]] += n * fwd
+    out[keys[1]] += n * wgrad
+    return out
+
+
+def add_launches(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in KERNELS}
 
 
 def card_line() -> str:
@@ -232,11 +278,14 @@ def check_kernels(gc):
     return rows
 
 
-def check_shape(gc, row, x32, w32, yb32, groups):
+ROUTES = ((torch.float32, "simt"), (torch.float32, "tf32"),
+          (torch.bfloat16, "simt"), (torch.bfloat16, "tc"))
+
+
+def check_shape(gc, row, x32, w32, yb32, groups, routes=ROUTES):
     """Each route's forward, dgrad and wgrad at one shape against the plain
     version; ``row`` keeps each error's largest over the shapes."""
-    for dtype, route in ((torch.float32, "simt"), (torch.float32, "tf32"),
-                         (torch.bfloat16, "simt"), (torch.bfloat16, "tc")):
+    for dtype, route in routes:
         x, w, yb = x32.to(dtype), w32.to(dtype), yb32.to(dtype)
         xf, wf, ybf = x.float(), w.float(), yb.float()
         tc = route != "simt"
@@ -503,7 +552,8 @@ def compare_f32(gc, cfg, mb: int = 25, syn_steps: int = 2):
         if not (ref.norm() > 0 and rel <= 1e-2):
             raise AssertionError(f"f32 meta-gradient {k} differs: {out}")
     print("f32 kernels vs F.conv2d: " + json.dumps(out), flush=True)
-    want = {k: F32_PER_INNER_STEP.get(k, 0) * syn_steps for k in KERNELS}
+    want = site_launches(cfg.image_encoder, "float32", 8 * syn_steps,
+                         4 * syn_steps)
     if launches != want:
         raise AssertionError(f"float32 step launches {launches}, expected "
                              f"{want}")
@@ -525,16 +575,15 @@ def eval_cfg(Config, **kw):
 
 def eval_launches(cfg, n_pairs: int) -> dict:
     """Kernel launches of the eval path: per student, every training step
-    runs each of the 19 grouped sites forward, its input gradient (the
-    stem's parameters lie upstream of every site) and its wgrad, and every
-    test batch runs them forward; float32, so the TF32 forward and
-    wgrad."""
+    runs each grouped site forward, its input gradient (the stem's
+    parameters lie upstream of every site) and its wgrad, and every test
+    batch runs them forward; float32 (NFNet-L0: the TF32 forward and
+    wgrad)."""
     steps = (cfg.epoch_eval_train + 1) * math.ceil(n_pairs / cfg.batch_train)
     tests = math.ceil(cfg.synthetic_test_size / cfg.batch_size_test)
-    return {"gconv3x3_fwd": 0, "gconv3x3_wgrad": 0, "gconv3x3_fwd_tc": 0,
-            "gconv3x3_wgrad_tc": 0,
-            "gconv3x3_wgrad_tf32": cfg.num_eval * 19 * steps,
-            "gconv3x3_fwd_tf32": cfg.num_eval * 19 * (2 * steps + tests)}
+    return site_launches(cfg.image_encoder, "float32",
+                         cfg.num_eval * (2 * steps + tests),
+                         cfg.num_eval * steps)
 
 
 def text_cache(cfg) -> np.ndarray:
@@ -728,25 +777,23 @@ def expert_cfg(Config, run: str, **kw):
                 device_augment=True, disable_wandb=True, seed=0,
                 name=f"phase7{run}", buffer_path="buffers",
                 save_dir="logged_files")
-    return Config(**{**base, **EXPERT_RUNS[run], **kw})
+    return Config(**{**base, **EXPERT_RUNS.get(run, {}), **kw})
 
 
 def expert_launches(cfg) -> dict:
     """Kernel launches of a buffer CLI run: per expert-epoch, every train
-    step runs each of the 19 grouped sites forward, its input gradient (the
-    stem lies upstream of every site) and its wgrad, in the train dtype
-    (float32: TF32, bfloat16: the bf16 tensor cores), and every test batch
-    runs them forward in float32.  The loader drops the last short train
-    batch."""
+    step runs each grouped site forward, its input gradient (the stem lies
+    upstream of every site) and its wgrad, in the train dtype (NFNet-L0:
+    float32 on TF32, bfloat16 on the bf16 tensor cores), and every test
+    batch runs them forward in float32.  The loader drops the last short
+    train batch."""
     steps = cfg.synthetic_size // cfg.batch_size_train
     tests = math.ceil(cfg.synthetic_test_size / cfg.batch_size_test)
-    n = cfg.num_experts * cfg.train_epochs * 19
-    out = dict.fromkeys(KERNELS, 0)
-    route = "tc" if cfg.train_dtype == "bfloat16" else "tf32"
-    out[f"gconv3x3_fwd_{route}"] += n * 2 * steps
-    out[f"gconv3x3_wgrad_{route}"] += n * steps
-    out["gconv3x3_fwd_tf32"] += n * tests
-    return out
+    n = cfg.num_experts * cfg.train_epochs
+    enc = cfg.image_encoder
+    return add_launches(
+        site_launches(enc, cfg.train_dtype, n * 2 * steps, n * steps),
+        site_launches(enc, "float32", n * tests, 0))
 
 
 def expert_path(gc, Config, run: str, **kw):
@@ -1181,46 +1228,273 @@ def distill_cli_path(gc, Config, phase3_steps_per_s: float, **kw):
     return out
 
 
+# phase 9 (a)'s towers and image sizes.  ConvNet runs at the JAX rehearsal
+# recipes' 32^2 (tools/quality_roco.sh): at 224^2 its first block keeps 128
+# channels at full resolution, ~1.3 GB a tensor in bf16 at mini-batch 100
+ZOO_TOWERS = {"vit": 224, "nf_resnet50": 224, "nf_regnet": 224,
+              "resnet18_gn": 224, "convnet": 32}
+ZOO_DATA = dict(synthetic_size=256, synthetic_test_size=256)
+# (c): eval towers for phase 3's NFNet-distilled 224^2 set (Table D)
+CROSS_EVAL = {"vit": {}, "nf_resnet50": {}, "nf_regnet": {}, "resnet50": {},
+              "convnet": {}, "nfnet_transfer": dict(image_encoder="nfnet",
+                                                    transfer=True)}
+
+
+def zoo_distill_cfg(Config, encoder: str, size: int, **kw):
+    """Phase 9 (a)'s distill configuration: phase 8's headline step (nq=100,
+    mb=100, syn_steps=8, bf16, forward-HVP, the kernels) on 256 pairs, 2
+    outer steps, one eval block of 1 float32 student at iteration 0, no
+    artifacts."""
+    return distill_cli_cfg(Config, image_encoder=encoder, image_size=size,
+                           Iteration=1, eval_it=2, num_eval=1,
+                           parallel_eval=False, std=False, draw=False,
+                           ckpt_it=0, name=f"phase9_{encoder}",
+                           **{**ZOO_DATA, **kw})
+
+
+def zoo_expert_path(gc, Config, encoder: str, size: int, **kw):
+    """Phase 9 (a)/(b), expert half: the buffer CLI through phase 7's
+    :func:`expert_path` (1 expert x 2 epochs, float32, batch 128,
+    ``--device_augment``, 256 pairs and a 256 x 5 test split), buffers read
+    back at the tower's width, launches exact."""
+    return expert_path(gc, Config, f"9_{encoder}", image_encoder=encoder,
+                       image_size=size, **{
+                           "num_experts": 1, "train_epochs": 2,
+                           "name": f"phase9_{encoder}", **ZOO_DATA, **kw})
+
+
+def zoo_distill_path(gc, Config, encoder: str, size: int, **kw):
+    """Phase 9 (a), distill half: ``cli/distill.main`` on the buffers that
+    :func:`zoo_expert_path` left in the current directory; launch counters
+    zeroed just before and read just after; each outer step timed on the
+    host clock between synchronizes.  Every ``Grand_Loss`` finite, the
+    student's nine metrics finite and in [0, 100], launches exact."""
+    from multimodal_dataset_distillation_tpu_torch.cli import distill as cli
+    from multimodal_dataset_distillation_tpu_torch.engine import distill as eng
+
+    cfg = zoo_distill_cfg(Config, encoder, size, **kw)
+    step_s = []
+    step = eng.Distiller.step_traj
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(self, *a, **k)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    eng.Distiller.step_traj = timed
+    try:
+        torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gc.reset_launches()
+        t0 = time.perf_counter()
+        distiller, history = cli.main(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(gc.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del distiller
+    finally:
+        eng.Distiller.step_traj = step
+    with open(os.path.join(cfg.save_dir, f"{cfg.name}.jsonl")) as f:
+        losses = {r["step"]: r["Grand_Loss"] for r in map(json.loads, f)
+                  if "Grand_Loss" in r}
+    steps = cfg.Iteration + 1
+    if sorted(losses) != list(range(steps)) or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{encoder}: Grand_Loss per iteration {losses}")
+    if [it for it, _ in history] != [0] or len(history[0][1]) != 1:
+        raise AssertionError(f"{encoder}: eval blocks {history}")
+    val = history[0][1][0]
+    if tuple(val) != METRIC_KEYS or not all(
+            math.isfinite(v) and 0.0 <= v <= 100.0 for v in val.values()):
+        raise AssertionError(f"{encoder}: bad metrics {val}")
+    want = add_launches(
+        site_launches(encoder, cfg.inner_dtype, 8 * cfg.syn_steps * steps,
+                      4 * cfg.syn_steps * steps),
+        eval_launches(cfg, cfg.num_queries))
+    if launches != want:
+        raise AssertionError(f"{encoder}: distill CLI launches {launches}, "
+                             f"expected {want}")
+    out = {"encoder": encoder, "image_size": size, "wall_s": wall,
+           "outer_step_s": step_s, "steps_per_s": 1.0 / step_s[-1],
+           "max_memory_allocated_gib": peak, "launches": launches,
+           "grand_loss": [losses[i] for i in range(steps)],
+           "r_mean": float(val["r_mean"])}
+    print(f"distill CLI ({encoder} {size}^2): outer steps "
+          f"{', '.join(f'{t:.3f}' for t in step_s)} s "
+          f"({out['steps_per_s']:.3f} steps/s after the first); peak "
+          f"{peak:.2f} GiB; " + json.dumps(out), flush=True)
+    return out
+
+
+def zoo_batchnorm_path(gc, Config, size: int = 224, **kw):
+    """Phase 9 (b): ResNet-50 through the buffer CLI (1 expert x 1 epoch):
+    every BatchNorm's running averages moved off their init (0 / 1) to
+    finite values and the snapshots read back; then the distill CLI
+    refuses the tower before it reads any data (the JAX Distiller cannot
+    run a BatchNorm tower either)."""
+    from multimodal_dataset_distillation_tpu_torch.cli import buffer as bcli
+    from multimodal_dataset_distillation_tpu_torch.cli import distill as dcli
+    from multimodal_dataset_distillation_tpu_torch.models.layers import (
+        BatchNorm)
+
+    built, reads = [], []
+    build, get_data = bcli.build_bi_encoder, dcli.get_dataset
+
+    def keep(cfg, device=None):
+        built.append(build(cfg, device))
+        return built[-1]
+
+    def no_data(cfg):
+        reads.append(cfg)
+        return get_data(cfg)
+
+    bcli.build_bi_encoder, dcli.get_dataset = keep, no_data
+    try:
+        out = zoo_expert_path(gc, Config, "resnet50", size,
+                              **{"train_epochs": 1, **kw})
+        bns = [m for m in built[0].modules() if isinstance(m, BatchNorm)]
+        moved = [bool(torch.isfinite(m.running_var).all()
+                      and (m.running_var > 0).all()
+                      and not (m.running_mean == 0).all()
+                      and not (m.running_var == 1).all()) for m in bns]
+        if len(bns) != 53 or not all(moved):
+            raise AssertionError(f"resnet50: {sum(moved)} of {len(bns)} "
+                                 f"BatchNorms moved their running averages")
+        try:
+            dcli.main(zoo_distill_cfg(Config, "resnet50", size, **kw))
+        except ValueError as err:
+            if "BatchNorm" not in str(err) or reads:
+                raise
+            out["distill_refusal"] = str(err)
+        else:
+            raise AssertionError("the distill CLI ran a BatchNorm tower")
+    finally:
+        bcli.build_bi_encoder, dcli.get_dataset = build, get_data
+    out["batchnorms_moved"] = len(bns)
+    print(f"resnet50: {len(bns)} BatchNorms moved; distill CLI refused: "
+          f"{out['distill_refusal']}", flush=True)
+    return out
+
+
+def check_kernels_regnet(gc):
+    """Phase 9 (d): the CUDA-core kernels at NF-RegNet-B1's four grouped
+    shapes (8 channels per group, odd group counts), forward, dgrad and
+    wgrad in float32 and bfloat16 at every mini-batch of ``CHECK_BATCHES``:
+    100 (the distill step and the eval students), 128 (the expert trainer,
+    the test passes) and 104 (the tail of the 1000-pair test split of
+    (c)'s evals), against the plain versions with phase 2's tolerances;
+    timed warm and cold at mini-batch 100 beside cuDNN's call (float32:
+    TF32 off and on) and the bound."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    simt = ((torch.float32, "simt"), (torch.bfloat16, "simt"))
+    only = {"fwd": ("simt",), "wgrad": ("simt",)}
+    rows = []
+    for (h, c, groups), sites in REGNET_SITES.items():
+        cpg = c // groups
+        w32 = torch.randn(3, 3, cpg, c, device="cuda",
+                          generator=gen) / math.sqrt(9 * cpg)
+        row = {"shape": [BATCH, h, h, c], "groups": groups, "sites": sites}
+        inputs = {b: [torch.randn(b, h, h, c, device="cuda", generator=gen)
+                      for _ in range(2)] for b in CHECK_BATCHES}
+        for batch, (x32, yb32) in inputs.items():
+            print(f"NF-RegNet-B1 shape x=({batch},{h},{h},{c}) "
+                  f"groups={groups} ({sites} sites per tower pass)",
+                  flush=True)
+            check_shape(gc, row, x32, w32, yb32, groups, simt)
+        (x32, yb32), inputs = inputs[BATCH], None
+        time_row(gc, row, x32.bfloat16(), w32.bfloat16(), yb32.bfloat16(),
+                 groups, only, "", PEAK_BF16)
+        time_row(gc, row, x32, w32, yb32, groups, only, "_f32", PEAK_FP32)
+        rows.append(row)
+    return rows
+
+
+def zoo_path(gc, Config, syn, phase3_steps_per_s: float):
+    """Phase 9: (d)'s kernel checks and float32 step first, then (a) each
+    tower's buffer -> distill run in one working directory (one caption
+    cache for all), (b) ResNet-50, (c) the cross-tower evals.  -> (the
+    NF-RegNet-B1 rows for the kernels line, the phase's summary)."""
+    rows = check_kernels_regnet(gc)
+    torch.cuda.empty_cache()
+    f32 = compare_f32(gc, main_cfg(Config, image_encoder="nf_regnet"))
+    torch.cuda.empty_cache()
+    out = {"compare_f32_nf_regnet": f32, "towers": {}, "cross_eval": {}}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        for encoder, size in ZOO_TOWERS.items():
+            out["towers"][encoder] = {
+                "buffer": zoo_expert_path(gc, Config, encoder, size),
+                "distill": zoo_distill_path(gc, Config, encoder, size)}
+            torch.cuda.empty_cache()
+        out["resnet50"] = zoo_batchnorm_path(gc, Config)
+        torch.cuda.empty_cache()
+    for name, flags in CROSS_EVAL.items():
+        out["cross_eval"][name] = eval_path(
+            gc, Config, syn, num_eval=2,
+            **{"image_encoder": name, **flags})
+        torch.cuda.empty_cache()
+    print(f"card: {card_line()}", flush=True)
+    for encoder, r in out["towers"].items():
+        epochs = r["buffer"]["epoch_s"]
+        print(f"phase 9 {encoder} at {ZOO_TOWERS[encoder]}^2: buffer "
+              f"{', '.join(f'{e['train_s']:.2f} s' for e in epochs)} per "
+              f"epoch ({', '.join(f'{e['images_per_s']:.1f}' for e in epochs)}"
+              f" images/s), peak {r['buffer']['max_memory_allocated_gib']:.2f}"
+              f" GiB; distill {r['distill']['steps_per_s']:.3f} outer "
+              f"steps/s (phase 3's NFNet-L0: {phase3_steps_per_s:.3f}), peak "
+              f"{r['distill']['max_memory_allocated_gib']:.2f} GiB",
+              flush=True)
+    for name, r in out["cross_eval"].items():
+        print(f"phase 9 eval under {name}: wall {r['wall_s']:.1f} s, peak "
+              f"{r['max_memory_allocated_gib']:.2f} GiB, r_mean "
+              f"{[round(x['r_mean'], 2) for x in r['results']]}", flush=True)
+    return rows, out
+
+
 def kernel_entries(rows, launches, launches_eval, launches_expert,
-                   launches_cli):
-    """One entry per kernel, summed over one tower pass (19 sites, mb=100),
-    in the dtype of the paths that launch it: float32 for the CUDA-core
-    kernels (their bf16 times beside, as ``*_bf16``) and the TF32 kernels
-    (phases 4-8; their bound: three passes at the TF32 rate, the CUDA
-    cores' float32 bound beside as ``bound_fp32_ms``), bf16 for the bf16
-    tensor-core ones.  ``launches``: of the bf16 tensor-core kernels phase
-    3's (the bf16 main path), of the float32 ones phase 4's (the float32
-    outer step); ``launches_eval``: phase 5's (the eval path);
-    ``launches_expert``: phase 7's per run of the buffer CLI;
-    ``launches_cli``: phase 8's (the distill CLI, all routes)."""
-    def total(key):
-        return sum(r["sites"] * r[key] for r in rows)
+                   launches_cli, regnet_rows, launches_zoo):
+    """One entry per kernel, summed over one tower pass (mb=100), in the
+    dtype of the paths that launch it.  The tensor-core kernels at NFNet-L0's
+    19 sites: bf16 for the bf16 ones, float32 for the TF32 ones (phases 4-8;
+    their bound: three passes at the TF32 rate, the CUDA cores' float32
+    bound beside as ``bound_fp32_ms``).  The CUDA-core kernels at
+    NF-RegNet-B1's 16 sites, their path since phase 9, float32 (the buffer
+    and eval students) with bfloat16 (the distill step) beside as
+    ``*_bf16``, and their phase-2 numbers at NFNet-L0's shapes under
+    ``nfnet_shapes``.  ``launches``: of the bf16 tensor-core kernels phase
+    3's (the bf16 main path), of the TF32 ones phase 4's (the float32 outer
+    step), of the CUDA-core ones phase 9 (a)'s NF-RegNet-B1 distill CLI
+    run; ``launches_eval``: phase 5's (the eval path); ``launches_expert``:
+    phase 7's per run of the buffer CLI; ``launches_cli``: phase 8's (the
+    distill CLI, all routes); ``launches_zoo``: phase 9's per run.  Each
+    entry, and its ``nfnet_shapes``, names the tower whose shapes its
+    numbers were taken at (``tower``)."""
+    def measures(name, kind, route, sfx, rs):
+        def total(key):
+            return sum(r["sites"] * r[key] for r in rs)
 
-    def err(kind, tag):
-        return max(r[f"{k}_err_{tag}"] for r in rows
-                   for k in ((kind, "dgrad") if kind == "fwd" else (kind,)))
+        def err(tag):
+            return max(r[f"{k}_err_{tag}"] for r in rs
+                       for k in ((kind, "dgrad") if kind == "fwd"
+                                 else (kind,)))
 
-    entries = []
-    for name, (kind, route, src, line) in KERNELS.items():
-        sfx = "" if route == "tc" else "_f32"
         bkey = f"{kind}_bound{'_tf32' if route == 'tf32' else ''}{sfx}"
         bound, cold = (total(f"{bkey}_ms"),
                        total(f"{kind}_{route}{sfx}_cold_ms"))
         entry = {
-            "name": name, "route": "cuda",
-            "source": f"{PKG}/csrc/{src}",
-            "replaces": f"{TPU_SRC}:{line}",
             "dtype": "float32" if sfx else "bfloat16",
-            "launches": launches[name],
-            "launches_eval": launches_eval[name],
-            "launches_expert": {run: n[name]
-                                for run, n in launches_expert.items()},
-            "launches_cli": launches_cli[name],
-            "max_abs_err": err(kind, f"{route}{sfx or '_bf16'}"),
+            "max_abs_err": err(f"{route}{sfx or '_bf16'}"),
             "ms": total(f"{kind}_{route}{sfx}_ms"), "ms_cold": cold,
             "plain_ms": total(f"{kind}_plain{sfx}_ms"),
             "bound_ms": bound, "bound_share_cold": bound / cold,
-            "bound_by": max(rows, key=lambda r: r[f"{bkey}_ms"])[
+            "bound_by": max(rs, key=lambda r: r[f"{bkey}_ms"])[
                 f"{bkey}_by"],
             "library_ms": total(f"{kind}_library{sfx}_ms"),
             "library_cold_ms": total(f"{kind}_library{sfx}_cold_ms"),
@@ -1236,12 +1510,38 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
             entry["bound_fp32_ms"] = total(f"{kind}_bound{sfx}_ms")
         if route == "simt":   # this route's bf16 times
             entry.update({
-                "max_abs_err_bf16": err(kind, f"{route}_bf16"),
+                "max_abs_err_bf16": err(f"{route}_bf16"),
                 "ms_bf16": total(f"{kind}_{route}_ms"),
                 "ms_cold_bf16": total(f"{kind}_{route}_cold_ms"),
                 "bound_ms_bf16": total(f"{kind}_bound_ms"),
                 "library_ms_bf16": total(f"{kind}_library_ms")})
-        entry["per_shape"] = [{k: r[k] for k in keys} for r in rows]
+        entry["per_shape"] = [{k: r[k] for k in keys} for r in rs]
+        return entry
+
+    entries = []
+    for name, (kind, route, src, line) in KERNELS.items():
+        sfx = "" if route == "tc" else "_f32"
+        entry = {"name": name, "route": "cuda",
+                 "source": f"{PKG}/csrc/{src}",
+                 "replaces": f"{TPU_SRC}:{line}"}
+        if route == "simt":
+            entry["tower"] = "nf_regnet_b1"
+            entry.update(measures(name, kind, route, sfx, regnet_rows))
+            entry["nfnet_shapes"] = {
+                "tower": "nfnet_l0",
+                **measures(name, kind, route, sfx, rows)}
+            entry["launches"] = launches_zoo["distill_nf_regnet"][name]
+        else:
+            entry["tower"] = "nfnet_l0"
+            entry.update(measures(name, kind, route, sfx, rows))
+            entry["launches"] = launches[name]
+        entry.update({
+            "launches_eval": launches_eval[name],
+            "launches_expert": {run: n[name]
+                                for run, n in launches_expert.items()},
+            "launches_cli": launches_cli[name],
+            "launches_zoo": {run: n[name]
+                             for run, n in launches_zoo.items()}})
         entries.append(entry)
     return entries
 
@@ -1299,13 +1599,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         with contextlib.chdir(os.path.join(tmp, "a")):
             cli = distill_cli_path(gc, Config, path["steps_per_s"])
+    torch.cuda.empty_cache()
+    regnet_rows, zoo = zoo_path(gc, Config, syn, path["steps_per_s"])
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
+    launches_zoo = {"compare_f32_nf_regnet":
+                    zoo["compare_f32_nf_regnet"]["launches"]}
+    for enc, r in zoo["towers"].items():
+        launches_zoo[f"buffer_{enc}"] = r["buffer"]["launches"]
+        launches_zoo[f"distill_{enc}"] = r["distill"]["launches"]
+    launches_zoo["buffer_resnet50"] = zoo["resnet50"]["launches"]
+    for name, r in zoo["cross_eval"].items():
+        launches_zoo[f"eval_{name}"] = r["launches"]
     print(json.dumps({"kernels": kernel_entries(
         rows, launches, ev["launches"],
         {run: e["launches"] for run, e in experts.items()},
-        cli["launches"])}), flush=True)
+        cli["launches"], regnet_rows, launches_zoo)}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

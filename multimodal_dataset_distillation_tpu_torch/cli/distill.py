@@ -21,7 +21,10 @@ raises.  Flow (distill_original.py:89-496):
 
 One card only.  Flags whose modules are not ported yet raise
 ``NotImplementedError`` at start-up, before any data is read
-(:func:`check_supported`).
+(:func:`check_supported`); so do, with ``ValueError``, the students the
+JAX distill CLI cannot run either (:func:`~..engine.distill.
+check_distillable`).  ``--transfer`` gives the eval students the transfer
+head and leaves the distill students plain, as there.
 
 Usage::
 
@@ -56,6 +59,7 @@ from ..engine.checkpoint import (
 from ..engine.distill import (
     Distiller,
     ExpertCycler,
+    check_distillable,
     dummy_trajectory,
     get_images_texts,
     noise_images,
@@ -63,7 +67,11 @@ from ..engine.distill import (
 )
 from ..engine.eval import evaluate_synset, evaluate_synset_parallel
 from ..models.clip_model import VLBiEncoder, build_bi_encoder, init_bi_encoder
-from ..models.zoo import load_timm_image_tower, load_timm_state_dict
+from ..models.zoo import (
+    UNPORTED,
+    load_timm_image_tower,
+    load_timm_state_dict,
+)
 from ..utils.logging import Profiler, RunLogger, get_time
 from ..utils.visualize import save_visualizations
 from .buffer import make_caption_lookup
@@ -103,11 +111,9 @@ def check_supported(cfg: Config, ignore: Sequence[str] = ()) -> None:
         (cfg.text_encoder == "clip", "--text_encoder=clip",
          "models/clip_text.py", 16),
         (cfg.stem_s2d, "--stem_s2d", "ops/s2d.py", 17),
-        (cfg.image_encoder not in ("nfnet", "nf_tiny"),
-         f"--image_encoder={cfg.image_encoder}", "models/zoo.py towers", 16),
-        (cfg.transfer or cfg.only_has_image_projection,
-         "--transfer / --only_has_image_projection",
-         "the transfer and image-projection heads", 16),
+        (cfg.image_encoder in UNPORTED,
+         f"--image_encoder={cfg.image_encoder}",
+         "models/clip_vision.py / models/convnext.py", 16),
     ]
     device = torch.device(cfg.device)
     if device.type == "cuda":
@@ -157,8 +163,13 @@ def _memory_probe(tag: str, device: torch.device) -> None:
 
 
 def main(cfg: Config):
-    """-> (distiller, history: [(it, [metrics per eval student])])."""
+    """-> (distiller, history: [(it, [metrics per eval student])]).  A
+    student the JAX distill CLI cannot run either (a BatchNorm tower,
+    --only_has_image_projection) raises ``ValueError`` before any data is
+    read."""
     check_supported(cfg)
+    with torch.device("meta"):   # shapes only: no weights are made
+        check_distillable(build_bi_encoder(_student_cfg(cfg), device="meta"))
     device = torch.device(cfg.device)
     if cfg.texture and cfg.pix_init == "real":
         print("WARNING: Using texture with real initialization will take a "

@@ -31,6 +31,10 @@ Meta-backward through each inner step ``theta' = theta - lr * g``:
 
 Dropout and DropPath masks come from a ``torch.Generator`` seeded per inner
 step and tower, so the Function's recompute redraws the same masks.
+
+Any stateless tower of the zoo distils.  Two configurations do not, as
+they do not in the JAX package (:func:`check_distillable`): a tower with
+BatchNorm, and a bi-encoder with an image projection.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from torch.func import functional_call
 
 from ..config import Config
 from ..models.clip_model import VLBiEncoder
+from ..models.layers import BatchNorm
 from ..ops.contrastive import RAW_LOG_SCALE, _symmetric_ce, l2_normalize
 from ..utils.flat import FlatParams
 from .buffer_io import load_buffer
@@ -105,6 +110,30 @@ class _FrCore(torch.autograd.Function):
         return (None, dlr_i, dlr_t, -hx, -hy, ybi - hgi, ybt - hgt, None)
 
 
+def check_distillable(model: VLBiEncoder) -> None:
+    """Raise ``ValueError`` for a student the JAX ``Distiller`` cannot run:
+
+    * a tower with BatchNorm (``resnet18``, ``resnet50``): the JAX
+      Distiller applies the students in train mode with ``batch_stats``
+      frozen and immutable, and flax raises ``ModifyScopeVariableError``
+      at the first BatchNorm's running-average update;
+    * an image projection (``--only_has_image_projection``): the JAX
+      Distiller hands ``encode_image`` the ``image_encoder`` parameters
+      alone, and flax finds no ``image_projection`` parameters."""
+    if any(isinstance(m, BatchNorm) for m in model.image_encoder.modules()):
+        raise ValueError(
+            f"--image_encoder={model.image_encoder.encoder_name}: a tower "
+            f"with BatchNorm cannot be distilled, as in the JAX package "
+            f"(its Distiller runs the students in train mode with frozen "
+            f"batch_stats, which flax refuses); take a stateless tower "
+            f"such as resnet18_gn")
+    if getattr(model, "image_projection", None) is not None:
+        raise ValueError(
+            "--only_has_image_projection cannot be distilled, as in the JAX "
+            "package (its Distiller passes the image tower's parameters "
+            "alone, without the image projection's)")
+
+
 class Distiller:
     """Owns the synthetic state and the outer step; host code feeds expert
     segments."""
@@ -114,6 +143,7 @@ class Distiller:
         """``inner_pad`` pads each inner minibatch with that many masked
         slots (the exact pad-and-mask loss of the JAX package's mesh path;
         the data-parallel slice sets it from the world size)."""
+        check_distillable(model)
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device)

@@ -4,7 +4,11 @@ Counterpart of ``multimodal_dataset_distillation_tpu/models/clip_model.py``
 and of ``engine/expert.py::init_bi_encoder`` there.  The two parameter
 groups the reference optimizes and snapshots separately are the
 ``image_encoder`` and ``text_projection`` submodules; text features are
-cached embeddings, so the frozen text encoder is not a submodule.
+cached embeddings, so the frozen text encoder is not a submodule.  With
+``only_image_projection`` an ``image_projection`` head (to 768) follows
+the image tower; no optimizer steps it (the reference's groups), so it
+stays at its init.  ``transfer`` gives the ``nfnet`` tower its 1000-class
+head (the reference's ``eval_stage``).
 :class:`VLBiEncoderTrainableText` is the ``--text_trainable`` variant,
 with BERT inside the step.
 """
@@ -20,9 +24,10 @@ from torch import nn
 from ..config import Config
 from ..ops.contrastive import FIXED_LOGIT_SCALE, contrastive_loss_and_acc
 from .bert import BERT_BASE, BERT_TINY, BertConfig, BertEncoder
-from .layers import WSConv
+from .layers import BatchNorm, WSConv
 from .projection import ProjectionHead
-from .zoo import IMAGE_FEATURE_DIMS, ImageTower
+from .vit import VisionTransformer
+from .zoo import ImageTower, feature_dim
 
 # text widths of the offline tiny encoders (BERT_TINY, CLIP_TEXT_TINY)
 _TINY_TEXT_DIM = 128
@@ -31,17 +36,27 @@ _TINY_TEXT_DIM = 128
 class VLBiEncoder(nn.Module):
     def __init__(self, image_encoder_name: str = "nfnet",
                  text_embedding: int = 768, image_embedding: int = 2304,
-                 proj_dropout: float = 0.1, gconv: bool = False):
+                 proj_dropout: float = 0.1, gconv: bool = False,
+                 only_image_projection: bool = False, transfer: bool = False,
+                 image_size: int = 224):
         super().__init__()
         self.text_embedding = text_embedding
-        self.image_encoder = ImageTower(image_encoder_name, gconv=gconv)
+        self.image_encoder = ImageTower(image_encoder_name, gconv=gconv,
+                                        transfer=transfer,
+                                        image_size=image_size)
         self.text_projection = ProjectionHead(text_embedding, image_embedding,
                                               dropout=proj_dropout)
+        self.image_projection = (ProjectionHead(image_embedding,
+                                                dropout=proj_dropout)
+                                 if only_image_projection else None)
 
     def encode_image(self, images: torch.Tensor, train: bool = False,
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
-        return self.image_encoder(images, train, generator)
+        feats = self.image_encoder(images, train, generator)
+        if self.image_projection is not None:
+            feats = self.image_projection(feats, train, generator)
+        return feats
 
     def project_text(self, text_features: torch.Tensor, train: bool = False,
                      generator: Optional[torch.Generator] = None
@@ -66,9 +81,9 @@ class VLBiEncoderTrainableText(VLBiEncoder):
 
     def __init__(self, image_encoder_name: str = "nfnet",
                  image_embedding: int = 2304, bert: BertConfig = BERT_BASE,
-                 gconv: bool = False):
+                 gconv: bool = False, image_size: int = 224):
         super().__init__(image_encoder_name, bert.hidden_size,
-                         image_embedding, gconv=gconv)
+                         image_embedding, gconv=gconv, image_size=image_size)
         self.text_encoder = BertEncoder(bert)
 
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor,
@@ -81,41 +96,32 @@ class VLBiEncoderTrainableText(VLBiEncoder):
         return contrastive_loss_and_acc(img, txt, FIXED_LOGIT_SCALE)
 
 
-def _check_buildable(cfg: Config) -> None:
-    if cfg.only_has_image_projection or cfg.transfer:
-        raise NotImplementedError(
-            "--transfer / --only_has_image_projection: the transfer and "
-            "image-projection heads are not ported yet (ROADMAP A, item 16)")
-    if cfg.image_encoder not in IMAGE_FEATURE_DIMS:
-        raise NotImplementedError(
-            f"--image_encoder={cfg.image_encoder}: models/zoo.py towers are "
-            f"not ported yet (ROADMAP A, item 16); the port has "
-            f"{', '.join(IMAGE_FEATURE_DIMS)}")
-
-
 def build_bi_encoder(cfg: Config, device=None) -> VLBiEncoder:
     """Build from a :class:`Config` like the JAX ``build_bi_encoder``, on
     ``device`` (default ``cfg.device``, the card unless the config says
     otherwise); the grouped 3x3 convs take the kernels when
-    ``cfg.pallas_gconv`` is set."""
-    _check_buildable(cfg)
+    ``cfg.pallas_gconv`` is set.  An unported tower raises
+    ``NotImplementedError`` naming its ROADMAP item."""
     text_dim = (_TINY_TEXT_DIM if cfg.text_encoder_config == "tiny"
                 else cfg.text_embedding)
     model = VLBiEncoder(image_encoder_name=cfg.image_encoder,
                         text_embedding=text_dim,
-                        image_embedding=IMAGE_FEATURE_DIMS[cfg.image_encoder],
-                        gconv=cfg.pallas_gconv)
+                        image_embedding=feature_dim(cfg.image_encoder,
+                                                    cfg.transfer),
+                        gconv=cfg.pallas_gconv,
+                        only_image_projection=cfg.only_has_image_projection,
+                        transfer=cfg.transfer, image_size=cfg.image_size)
     return model.to(cfg.device if device is None else device)
 
 
 def build_trainable_text(cfg: Config, device=None) -> VLBiEncoderTrainableText:
     """The ``--text_trainable`` bi-encoder for ``cfg`` (BERT-base, or the
-    tiny BERT when ``text_encoder_config="tiny"``), on ``device``."""
-    _check_buildable(cfg)
+    tiny BERT when ``text_encoder_config="tiny"``), on ``device``; like the
+    JAX one it has no image projection and no transfer head."""
     model = VLBiEncoderTrainableText(
-        cfg.image_encoder, IMAGE_FEATURE_DIMS[cfg.image_encoder],
+        cfg.image_encoder, feature_dim(cfg.image_encoder),
         BERT_TINY if cfg.text_encoder_config == "tiny" else BERT_BASE,
-        gconv=cfg.pallas_gconv)
+        gconv=cfg.pallas_gconv, image_size=cfg.image_size)
     return model.to(cfg.device if device is None else device)
 
 
@@ -130,7 +136,9 @@ def _trunc_normal(t: torch.Tensor, fan_in: int, scale: float,
 def init_bi_encoder(model: VLBiEncoder, seed: int = 0) -> VLBiEncoder:
     """Fresh weights from a seeded generator, with the JAX package's
     initializers: he-normal WS kernels, unit gains, zero biases, zero
-    skipinit gains, lecun-normal dense kernels, unit LayerNorm scales."""
+    skipinit gains, lecun-normal conv and dense kernels, unit norm scales,
+    BatchNorm running averages 0 / 1, ViT's ``cls_token`` zeros and
+    ``pos_embed`` normal(0.02)."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, WSConv):
@@ -143,10 +151,18 @@ def init_bi_encoder(model: VLBiEncoder, seed: int = 0) -> VLBiEncoder:
             w = torch.empty(mod.weight.shape)
             _trunc_normal(w, mod.weight[0].numel(), 1.0, gen)
             mod.weight.copy_(w)
-            mod.bias.zero_()
-        elif isinstance(mod, nn.LayerNorm):
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm, BatchNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+            if isinstance(mod, BatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+        elif isinstance(mod, VisionTransformer):
+            mod.cls_token.zero_()
+            mod.pos_embed.copy_(0.02 * torch.randn(mod.pos_embed.shape,
+                                                   generator=gen))
     for name, p in model.named_parameters():
         if name.endswith("skipinit_gain"):
             p.zero_()

@@ -4,14 +4,24 @@ The JAX package keeps parameters in a flax tree (dict keys sorted when
 raveled, conv kernels HWIO, Dense kernels (in, out), gains (out,), SE as
 Dense); this package keeps timm names in registration order and torch
 layouts (OIHW, (out, in), gains (out, 1, 1, 1), SE as 1x1 convs).  This
-module maps one to the other, for :class:`~.nfnet.NormFreeNet`,
-:class:`~.zoo.ImageTower`, :class:`~.projection.ProjectionHead` and
-:class:`~.bert.BertEncoder` (the port's own copy of the mapping in
-``models/import_torch.py:127-176`` and ``models/torch_order.py`` there; the
-BERT names are those of ``models/bert.py`` there).
+module maps one to the other, for every network of :mod:`.zoo` and the
+:class:`~.zoo.ImageTower` around it, :class:`~.projection.ProjectionHead`
+and :class:`~.bert.BertEncoder` (the port's own copy of the mappings in
+``models/import_torch.py`` and ``models/torch_order.py`` there; the BERT
+names are those of ``models/bert.py`` there).
 
-* :func:`params_from_jax` turns a JAX parameter tree (numpy leaves) into
-  the module's state dict.
+A module's flax path follows its port name, renamed where a module says
+so: a module's ``jax_names`` maps a child's (dotted) name to the flax
+module name it stands for (``ImageTower``'s ``model`` -> the flax
+auto-name ``NormFreeNet_0`` / ``ConvNet_0`` / ``ResNet_0`` /
+``VisionTransformer_0``, timm's ``stages.0.1`` -> ``stage0_block1``, a
+ResNet block's ``downsample.1`` -> ``shortcut_bn``, ...).  Leaves: conv
+and dense kernels ``kernel``, norm weights ``scale``; BatchNorm's running
+averages are the ``batch_stats`` collection's ``mean`` / ``var``.
+
+* :func:`params_from_jax` turns a JAX parameter tree (numpy leaves), and
+  a ``batch_stats`` tree where the module has BatchNorms, into the
+  module's state dict.
 * :func:`flat_from_jax` / :func:`flat_to_jax` map a JAX ravel-order flat
   vector (``.npz`` buffers, ``Distiller.unroll`` outputs) to and from the
   module's flat order, over the last axis; :func:`jax_shapes` /
@@ -23,42 +33,34 @@ BERT names are those of ``models/bert.py`` there).
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from .bert import BertEncoder
-from .layers import WSConv
+from .layers import BatchNorm, WSConv
 
-# flax's auto-name of the network inside the JAX ImageTower
-_JAX_TOWER_KEY = "NormFreeNet_0"
-
-
-def _jax_module_path(mod_name: str) -> Tuple[str, ...]:
-    """Port module name -> flax module path."""
+def _jax_module_path(root: nn.Module, mod_name: str) -> Tuple[str, ...]:
+    """Port module name -> flax module path, through the ``jax_names`` of
+    the modules on the way (the longest dotted match first)."""
     parts = mod_name.split(".") if mod_name else []
     path: List[str] = []
-    i = 0
+    mod, i = root, 0
     while i < len(parts):
-        p = parts[i]
-        if p == "model":
-            path.append(_JAX_TOWER_KEY)
-        elif p == "stem":
-            path.append(f"stem_{parts[i + 1]}")
-            i += 1
-        elif p == "stages":
-            path.append(f"stage{parts[i + 1]}_block{parts[i + 2]}")
-            i += 2
-        elif p == "downsample":
-            path.append("downsample_conv")
-            i += 1  # timm's downsample.conv is flax's downsample_conv
-        elif p == "attn_last":
-            path.append("se")
+        names = getattr(mod, "jax_names", {})
+        for j in range(len(parts), i, -1):
+            key = ".".join(parts[i:j])
+            if key in names:
+                path.append(names[key])
+                break
         else:
-            path.append(p)
-        i += 1
+            j = i + 1
+            path.append(parts[i])
+        for p in parts[i:j]:
+            mod = getattr(mod, p) if not p.isdigit() else mod[int(p)]
+        i = j
     return tuple(path)
 
 
@@ -86,11 +88,12 @@ def _leaf(mod: nn.Module, pname: str) -> Tuple[str, str]:
         return pname, ("gain" if pname == "gain" else "plain")
     if isinstance(mod, WSConv):
         return "kernel", "conv"
-    if isinstance(mod, nn.Conv2d):  # SE fc, a flax Dense
-        return "kernel", "se_fc"
+    if isinstance(mod, nn.Conv2d):  # an SE fc is a flax Dense
+        return "kernel", ("se_fc" if getattr(mod, "jax_dense", False)
+                          else "conv")
     if isinstance(mod, nn.Linear):
         return "kernel", "linear"
-    if isinstance(mod, nn.LayerNorm):
+    if isinstance(mod, (nn.LayerNorm, nn.GroupNorm, BatchNorm)):
         return "scale", "plain"
     if isinstance(mod, nn.Embedding):
         return "embedding", "plain"
@@ -121,8 +124,11 @@ def _jax_shape(kind: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
 def _entries(module: nn.Module):
     """[(name, torch shape, flax path, flax shape, kind)] in the order of
     ``module.named_parameters()`` (pre-order, direct parameters first)."""
-    path_of = (_bert_module_path if isinstance(module, BertEncoder)
-               else _jax_module_path)
+    if isinstance(module, BertEncoder):
+        path_of = _bert_module_path
+    else:
+        def path_of(name):
+            return _jax_module_path(module, name)
     out = []
     for mod_name, mod in module.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
@@ -134,19 +140,34 @@ def _entries(module: nn.Module):
     return out
 
 
-def params_from_jax(tree: Mapping[str, Any],
-                    module: nn.Module) -> Dict[str, torch.Tensor]:
-    """JAX parameter (sub)tree of ``module`` -> the module's state dict."""
+def _get(tree: Mapping[str, Any], path: Tuple[str, ...]) -> np.ndarray:
+    for k in path:
+        tree = tree[k]
+    return np.asarray(tree)
+
+
+def params_from_jax(tree: Mapping[str, Any], module: nn.Module,
+                    batch_stats: Optional[Mapping[str, Any]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX parameter (sub)tree of ``module`` -> the module's state dict;
+    with ``batch_stats`` (the same subtree of that collection) the
+    BatchNorms' running averages too."""
     sd: Dict[str, torch.Tensor] = {}
     for name, shape, path, jshape, kind in _entries(module):
-        leaf = tree
-        for k in path:
-            leaf = leaf[k]
-        a = np.asarray(leaf)
+        a = _get(tree, path)
         if a.shape != jshape:
             raise ValueError(f"{'/'.join(path)}: JAX shape {a.shape}, "
                              f"expected {jshape} for {name}")
         sd[name] = torch.tensor(np.ascontiguousarray(_to_torch(kind, a, shape)))
+    if batch_stats is not None:
+        for mod_name, mod in module.named_modules():
+            if isinstance(mod, BatchNorm):
+                path = _jax_module_path(module, mod_name)
+                pre = f"{mod_name}." if mod_name else ""
+                for buf, leaf in (("running_mean", "mean"),
+                                  ("running_var", "var")):
+                    sd[pre + buf] = torch.tensor(
+                        _get(batch_stats, path + (leaf,)), dtype=torch.float32)
     return sd
 
 

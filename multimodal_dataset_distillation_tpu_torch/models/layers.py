@@ -1,10 +1,11 @@
-"""Shared building blocks of the NF towers.
+"""Shared building blocks of the image towers.
 
-Counterpart of ``multimodal_dataset_distillation_tpu/models/layers.py``.
-Modules take NCHW tensors, which the towers keep channels-last in memory
-so that a permute to NHWC is free; parameters use timm's names, shapes
-and registration order.  Train-mode randomness (DropPath, Dropout) draws
-from an explicit ``torch.Generator`` passed to ``forward``.
+Counterpart of ``multimodal_dataset_distillation_tpu/models/layers.py``
+(and of the flax norms the towers there use).  Modules take NCHW tensors,
+which the towers keep channels-last in memory so that a permute to NHWC is
+free; parameters use timm's / torchvision's names, shapes and
+registration order.  Train-mode randomness (DropPath, Dropout) draws from
+an explicit ``torch.Generator`` passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -54,16 +55,93 @@ def gamma_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     return lambda x: act(x) * gamma
 
 
-def tf_same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
+def tf_same_pad(x: torch.Tensor, k: int, s: int,
+                value: float = 0.0) -> torch.Tensor:
     """TF/flax "SAME" padding of an NCHW tensor: the extra pixel goes at
-    the end, so a 3x3 stride-2 conv on an even size pads (0, 1)."""
+    the end, so a 3x3 stride-2 conv on an even size pads (0, 1).  ``value``
+    fills the pad (-inf for flax's ``max_pool``)."""
     ih, iw = x.shape[-2:]
     pad_h = max((-(-ih // s) - 1) * s + k - ih, 0)
     pad_w = max((-(-iw // s) - 1) * s + k - iw, 0)
     if not (pad_h or pad_w):
         return x
     return F.pad(x, (pad_w // 2, pad_w - pad_w // 2,
-                     pad_h // 2, pad_h - pad_h // 2))
+                     pad_h // 2, pad_h - pad_h // 2), value=value)
+
+
+def promoted(x: torch.Tensor, *ps: Optional[torch.Tensor]):
+    """``x`` and the parameters ``ps`` cast to their promoted dtype: flax's
+    layers with ``dtype=None`` compute in ``result_type(inputs, params)``,
+    so float32 activations meet bfloat16-rounded weights in float32."""
+    dt = x.dtype
+    for p in ps:
+        if p is not None:
+            dt = torch.promote_types(dt, p.dtype)
+    return [x.to(dt)] + [None if p is None else p.to(dt) for p in ps]
+
+
+def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``layer(x)`` in the promoted dtype (flax ``nn.Dense``)."""
+    return F.linear(*promoted(x, layer.weight, layer.bias))
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` (momentum 0.99, eps 1e-5) on NCHW.
+
+    Train mode normalises by the batch's biased statistics, taken in
+    float32 as flax takes them (``E[x^2] - E[x]^2``, floored at 0), and
+    moves the running averages as flax does: ``ra = 0.99 * ra + 0.01 *
+    batch``, the variance biased (torch's ``BatchNorm2d`` would use 0.1 and
+    the unbiased variance).  Eval mode normalises by the running averages.
+    The output takes the promoted dtype of input and parameters; the
+    running averages stay float32.  Names are torchvision's: parameters
+    ``weight``/``bias`` (flax ``scale``/``bias``), buffers
+    ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``),
+    so they are not part of ``parameters()``, as in the reference."""
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+        self.momentum, self.eps = momentum, eps
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean.detach())
+                self.running_var.mul_(m).add_((1 - m) * var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias.float()[:, None, None]
+        return y.to(promoted(x, self.weight, self.bias)[0].dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` with the towers' norm signature: ``forward(x,
+    train)``, ``train`` unread (the norm has no running state)."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return super().forward(x)
+
+
+class ChannelLayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm`` over the channel axis of an NCHW tensor (the
+    JAX ConvNet's "layernorm": the last axis of its NHWC activations);
+    ``train`` unread, as in :class:`GroupNorm`."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = F.layer_norm(x.permute(0, 2, 3, 1), self.normalized_shape,
+                         self.weight, self.bias, self.eps)
+        return y.permute(0, 3, 1, 2)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -132,6 +210,8 @@ class SqueezeExcite(nn.Module):
         rd = int((rd + rd_divisor / 2) // rd_divisor * rd_divisor)
         self.fc1 = nn.Conv2d(features, rd, 1)
         self.fc2 = nn.Conv2d(rd, features, 1)
+        for fc in (self.fc1, self.fc2):   # a flax Dense in the JAX tree
+            fc.jax_dense = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3))

@@ -1,17 +1,22 @@
-"""Normalizer-Free networks (NFNet-L0 and its CI-sized twin) in PyTorch.
+"""Normalizer-Free networks (NFNet-L0, NF-ResNet50, NF-RegNet-B1 and a
+CI-sized NFNet) in PyTorch.
 
 Counterpart of ``multimodal_dataset_distillation_tpu/models/nfnet.py``:
 scaled weight-standardized convs, variance-preserving activations,
 residual branches scaled by beta = 1/expected_std on entry and alpha on
-exit, SE after conv3 (timm ``attn_last``) with gain 2, zero-init skipinit
-gain, final 1x1 conv, global average pool.
+exit, SE with gain 2 (after conv3, timm ``attn_last``, on NFNet-style
+blocks; mid-block on the expanded width, timm ``attn``, on reg-style
+ones), optional zero-init skipinit gain, final 1x1 conv, global average
+pool, optional dropout + classifier.  Stems: ``deep_quad`` (NFNet),
+``7x7_pool`` (7x7/2 conv, activation, TF-SAME 3x3/2 max pool) and ``3x3``
+(one 3x3/2 conv; stage 0 then strides too).  Reg-style blocks (NF-RegNet)
+take their mid width from the block's input.
 
 Module names, shapes and registration order are timm's ``NormFreeNet``
-(``stem.conv1..4``, ``stages.{s}.{b}.{skipinit_gain, downsample.conv,
-conv1, conv2, conv2b, conv3, attn_last.fc1/fc2}``, ``final_conv``), so
-``parameters()`` order is the reference's snapshot order.  Supported here:
-the deep_quad stem, headless towers (``num_classes=0``).  The s2d stem and
-the other NF configurations come in a later slice.
+(``stem.conv1..4`` or ``stem.conv``, ``stages.{s}.{b}.{skipinit_gain,
+downsample.conv, conv1, conv2, conv2b, attn.fc1/fc2, conv3,
+attn_last.fc1/fc2}``, ``final_conv``, ``head.fc``), so ``parameters()``
+order is the reference's snapshot order.  The s2d stem is not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +28,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import DropPath, SqueezeExcite, WSConv, gamma_act, tf_same_pad
+from .layers import (
+    DropPath,
+    SqueezeExcite,
+    WSConv,
+    dense,
+    dropout,
+    gamma_act,
+    tf_same_pad,
+)
 
 
 def make_divisible(v: float, divisor: int = 8,
@@ -67,6 +80,25 @@ NFNET_L0 = NfConfig(
     skipinit=True, drop_path_rate=0.1,
 )
 
+# timm `nf_resnet50`: 7x7 + pool stem, plain 3x3s, ReLU, no SE, no
+# skipinit, the 1000-class head kept (networks.py:670).
+NF_RESNET50 = NfConfig(
+    depths=(3, 4, 6, 3), channels=(256, 512, 1024, 2048),
+    stem_type="7x7_pool", stem_chs=64, group_size=None, bottle_ratio=0.25,
+    extra_conv=False, num_features=0, act="relu", attn_rd_ratio=0.0,
+    skipinit=False, num_classes=1000,
+)
+
+# timm `nf_regnet_b1`: widths x0.75, 3x3/2 stem, inverted bottlenecks x2.25
+# of the block input with 8-channel groups, SE (0.5) mid-block, final 1x1
+# conv to 960, the 1000-class head kept (networks.py:672).
+NF_REGNET_B1 = NfConfig(
+    depths=(2, 4, 7, 7), channels=(48, 104, 208, 440),
+    stem_type="3x3", stem_chs=40, group_size=8, bottle_ratio=2.25,
+    extra_conv=False, num_features=960, act="silu", attn_rd_ratio=0.5,
+    skipinit=False, num_classes=1000, reg=True, width_factor=0.75,
+)
+
 # CI-sized NFNet: nfnet_l0's block anatomy at toy width and depth.
 NF_TINY = NfConfig(
     depths=(1, 2), channels=(32, 64),
@@ -94,6 +126,24 @@ class DeepQuadStem(nn.Module):
         return self.conv4(x)
 
 
+class SimpleStem(nn.Module):
+    """``7x7_pool``: 7x7/2 conv, activation, TF-SAME 3x3/2 max pool (the
+    pad is -inf, as flax's); ``3x3``: one 3x3/2 conv."""
+
+    def __init__(self, in_chs: int, c: int, stem_type: str, act: str):
+        super().__init__()
+        self.pool = stem_type == "7x7_pool"
+        self.conv = WSConv(in_chs, c, 7 if self.pool else 3, stride=2)
+        self.act = gamma_act(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if not self.pool:
+            return x
+        x = tf_same_pad(self.act(x), 3, 2, value=float("-inf"))
+        return F.max_pool2d(x, 3, 2)
+
+
 class DownsampleAvg(nn.Module):
     """Transition shortcut: 2x2 average pool (TF-SAME, pads counted) when
     strided, then a 1x1 WSConv."""
@@ -114,10 +164,8 @@ class NfBlock(nn.Module):
                  beta: float, transition: bool, drop_path: float,
                  gconv: bool):
         super().__init__()
-        if cfg.reg:
-            raise NotImplementedError("reg-style NF blocks come with a "
-                                      "later slice")
-        mid = make_divisible(out_chs * cfg.bottle_ratio, cfg.ch_div)
+        mid = make_divisible((in_chs if cfg.reg else out_chs)
+                             * cfg.bottle_ratio, cfg.ch_div)
         groups = 1
         if cfg.group_size:
             groups = max(1, mid // cfg.group_size)
@@ -136,9 +184,14 @@ class NfBlock(nn.Module):
                             gconv=gconv)
         self.conv2b = (WSConv(mid, mid, 3, groups=groups, gconv=gconv)
                        if cfg.extra_conv else None)
+        se = cfg.attn_rd_ratio > 0
+        self.attn = (SqueezeExcite(mid, rd_ratio=cfg.attn_rd_ratio)
+                     if se and cfg.reg else None)
         self.conv3 = WSConv(mid, out_chs, 1)
         self.attn_last = (SqueezeExcite(out_chs, rd_ratio=cfg.attn_rd_ratio)
-                          if cfg.attn_rd_ratio > 0 else None)
+                          if se and not cfg.reg else None)
+        self.jax_names = {"downsample.conv": "downsample_conv",
+                          "attn": "se_mid", "attn_last": "se"}
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -149,6 +202,8 @@ class NfBlock(nn.Module):
         out = self.conv2(self.act(out))
         if self.conv2b is not None:
             out = self.conv2b(self.act(out))
+        if self.attn is not None:
+            out = self.attn_gain * self.attn(out)
         out = self.conv3(self.act(out))
         if self.attn_last is not None:
             out = self.attn_gain * self.attn_last(out)
@@ -158,19 +213,41 @@ class NfBlock(nn.Module):
         return out * self.alpha + shortcut
 
 
+class ClassifierHead(nn.Module):
+    """timm's ``head``: dropout, then ``fc``."""
+
+    def __init__(self, in_features: int, num_classes: int, drop_rate: float):
+        super().__init__()
+        self.drop_rate = drop_rate
+        self.fc = nn.Linear(in_features, num_classes)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if train:
+            x = dropout(x, self.drop_rate, generator)
+        return dense(x, self.fc)
+
+
 class NormFreeNet(nn.Module):
-    """Headless normalizer-free network over :class:`NfConfig`; NCHW in,
-    pooled (N, features) out."""
+    """Normalizer-free network over :class:`NfConfig`; NCHW in, pooled
+    (N, features) out, or (N, num_classes) with a head."""
 
     def __init__(self, cfg: NfConfig, in_chs: int = 3, gconv: bool = False):
         super().__init__()
-        if cfg.stem_type != "deep_quad" or cfg.num_classes:
-            raise NotImplementedError(
-                "this slice ports the deep_quad stem and headless towers")
         self.cfg = cfg
         self.act = gamma_act(cfg.act)
         stem_chs = make_divisible(cfg.stem_chs * cfg.width_factor, cfg.ch_div)
-        self.stem = DeepQuadStem(in_chs, stem_chs, cfg.act)
+        if cfg.stem_type == "deep_quad":
+            self.stem = DeepQuadStem(in_chs, stem_chs, cfg.act)
+        elif cfg.stem_type in ("7x7_pool", "3x3"):
+            self.stem = SimpleStem(in_chs, stem_chs, cfg.stem_type, cfg.act)
+        else:
+            raise ValueError(cfg.stem_type)
+        # 3x3 stems downsample only 2x, so stage 0 strides too (timm)
+        stem_stride = 2 if cfg.stem_type == "3x3" else 4
+        self.jax_names = {"head.fc": "head"}
+        self.jax_names.update({f"stem.{n}": f"stem_{n}"
+                               for n, _ in self.stem.named_children()})
         total_blocks = sum(cfg.depths)
         block_idx = 0
         expected_std = 1.0
@@ -178,9 +255,10 @@ class NormFreeNet(nn.Module):
         stages = []
         for si, (depth, chs) in enumerate(zip(cfg.depths, cfg.channels)):
             out_chs = make_divisible(chs * cfg.width_factor, cfg.ch_div)
-            stride = 1 if si == 0 else 2  # deep_quad stems already stride 4
+            stride = 1 if si == 0 and stem_stride > 2 else 2
             blocks = []
             for bi in range(depth):
+                self.jax_names[f"stages.{si}.{bi}"] = f"stage{si}_block{bi}"
                 dpr = cfg.drop_path_rate * block_idx / max(total_blocks - 1, 1)
                 blocks.append(NfBlock(cfg, prev, out_chs,
                                       stride if bi == 0 else 1,
@@ -195,6 +273,9 @@ class NormFreeNet(nn.Module):
         self.stages = nn.ModuleList(stages)
         self.final_conv = (WSConv(prev, cfg.num_features, 1)
                            if cfg.num_features else None)
+        self.head = (ClassifierHead(cfg.num_features or prev,
+                                    cfg.num_classes, cfg.drop_rate)
+                     if cfg.num_classes else None)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -204,4 +285,5 @@ class NormFreeNet(nn.Module):
                 x = block(x, train, generator)
         if self.final_conv is not None:
             x = self.act(self.final_conv(x))
-        return x.mean(dim=(2, 3))
+        x = x.mean(dim=(2, 3))
+        return x if self.head is None else self.head(x, train, generator)

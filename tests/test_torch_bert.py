@@ -19,6 +19,7 @@ from multimodal_dataset_distillation_tpu_torch.models import bert
 from multimodal_dataset_distillation_tpu_torch.models.convert import (
     bert_state_dict_from_jax,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 CAPTIONS = [
     "a dog runs on the beach",

@@ -53,6 +53,7 @@ from multimodal_dataset_distillation_tpu_torch.models.convert import (
     flat_to_jax,
     params_from_jax,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(dataset="synthetic", synthetic_size=8, synthetic_test_size=4,
@@ -241,8 +242,8 @@ def test_jax_reads_port_buffers_and_port_distills_them(runs, monkeypatch):
     (dict(distributed=True), "--distributed"),
     (dict(text_encoder="clip"), "--text_encoder=clip"),
     (dict(stem_s2d=True), "--stem_s2d"),
-    (dict(image_encoder="resnet18"), "--image_encoder=resnet18"),
-    (dict(only_has_image_projection=True), "--only_has_image_projection")])
+    (dict(image_encoder="convnext"), "--image_encoder=convnext"),
+    (dict(image_encoder="clip"), "--image_encoder=clip")])
 def test_unported_flags_raise_before_data(tmp_path, monkeypatch, flag, match):
     def no_data(cfg):
         raise AssertionError("data was read before the flag check")
@@ -252,6 +253,25 @@ def test_unported_flags_raise_before_data(tmp_path, monkeypatch, flag, match):
     with pytest.raises(NotImplementedError, match=match) as err:
         pcli.main(Config(**{**KW, **flag, "device": "cpu"}))
     assert "ROADMAP A, item 1" in str(err.value)
+
+
+@pytest.mark.parametrize("flag", [
+    dict(image_encoder="resnet18"), dict(image_encoder="resnet50"),
+    dict(image_encoder="vit"), dict(image_encoder="nf_regnet"),
+    dict(image_encoder="convnet", only_has_image_projection=True)])
+def test_ported_towers_reach_the_data(tmp_path, monkeypatch, flag):
+    """What the JAX buffer CLI trains (BatchNorm towers and the image
+    projection included) passes the start-up checks."""
+    class DataRead(Exception):
+        pass
+
+    def data(cfg):
+        raise DataRead
+
+    monkeypatch.setattr(pcli, "get_dataset", data)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(DataRead):
+        pcli.main(Config(**{**KW, **flag, "device": "cpu"}))
 
 
 @pytest.mark.parametrize("mode", [dict(parallel_experts=2),

@@ -12,6 +12,7 @@ from test_torch_buffer_cli import (
     assert_trajectories_match,
     run_both,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

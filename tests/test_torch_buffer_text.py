@@ -56,6 +56,7 @@ from multimodal_dataset_distillation_tpu_torch.models.convert import (
 from multimodal_dataset_distillation_tpu_torch.ops import (
     randaugment_device as pra,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SIZE, B, PAD = 32, 4, 64
 HYPER = dict(lr_img=0.05, lr_txt=0.05, momentum=0.9, weight_decay=5e-4)

@@ -9,6 +9,7 @@ import pytest
 
 from multimodal_dataset_distillation_tpu import config as jconfig
 from multimodal_dataset_distillation_tpu_torch import config as tconfig
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 ARGVS = [
     [],

@@ -26,6 +26,7 @@ from multimodal_dataset_distillation_tpu_torch.data import pipeline as tpipeline
 from multimodal_dataset_distillation_tpu_torch.data import transforms as ttransforms
 from multimodal_dataset_distillation_tpu_torch.ops import randaugment as tra
 from multimodal_dataset_distillation_tpu_torch.utils import augrng as taugrng
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SIZE = 32
 HARD = [

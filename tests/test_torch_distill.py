@@ -56,6 +56,7 @@ from multimodal_dataset_distillation_tpu_torch.models.convert import (
     params_from_jax,
 )
 from multimodal_dataset_distillation_tpu_torch.utils.flat import flatten_params
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 NQ, MB, STEPS, SIZE = 4, 2, 2, 32
 CFG = dict(image_encoder="nf_tiny", image_size=SIZE, num_queries=NQ,

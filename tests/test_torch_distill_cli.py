@@ -61,6 +61,7 @@ from multimodal_dataset_distillation_tpu_torch.models.convert import (
     flat_from_jax,
     flat_to_jax,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 KW = dict(dataset="synthetic", synthetic_size=8, synthetic_test_size=4,
@@ -421,13 +422,46 @@ def test_port_buffers_load_in_jax_and_back(tmp_path):
 @pytest.mark.parametrize("flag", [
     dict(zca=True), dict(mesh_shape=(2,)),
     dict(text_encoder="clip"), dict(stem_s2d=True),
-    dict(image_encoder="resnet18"), dict(transfer=True)])
+    dict(image_encoder="convnext"), dict(image_encoder="clip")])
 def test_queued_flags_raise_at_start_up(tmp_path, monkeypatch, flag):
     def no_data(cfg):
         raise AssertionError("data was read before the flag check")
 
     monkeypatch.setattr(pcli, "get_dataset", no_data)
     with pytest.raises(NotImplementedError, match=r"ROADMAP A, item 1\d"):
+        pcli.main(_cfg(tmp_path, **flag))
+
+
+@pytest.mark.parametrize("flag,match", [
+    (dict(image_encoder="resnet18"), "BatchNorm"),
+    (dict(image_encoder="resnet50"), "BatchNorm"),
+    (dict(image_encoder="convnet", only_has_image_projection=True),
+     "--only_has_image_projection")])
+def test_what_jax_cannot_distill_raises_at_start_up(tmp_path, monkeypatch,
+                                                    flag, match):
+    """The JAX Distiller cannot run these (tests/test_torch_zoo_distill.py
+    shows it raising): the port refuses them before any data is read."""
+    def no_data(cfg):
+        raise AssertionError("data was read before the check")
+
+    monkeypatch.setattr(pcli, "get_dataset", no_data)
+    with pytest.raises(ValueError, match=match):
+        pcli.main(_cfg(tmp_path, **flag))
+
+
+@pytest.mark.parametrize("flag", [
+    dict(image_encoder="vit"), dict(image_encoder="nf_resnet50"),
+    dict(image_encoder="nf_regnet"), dict(image_encoder="resnet18_gn"),
+    dict(image_encoder="convnet"), dict(transfer=True)])
+def test_ported_towers_reach_the_data(tmp_path, monkeypatch, flag):
+    class DataRead(Exception):
+        pass
+
+    def data(cfg):
+        raise DataRead
+
+    monkeypatch.setattr(pcli, "get_dataset", data)
+    with pytest.raises(DataRead):
         pcli.main(_cfg(tmp_path, **flag))
 
 

@@ -31,6 +31,7 @@ from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
 )
 from multimodal_dataset_distillation_tpu_torch.utils.flat import flatten_params
 from test_torch_expert import _jax_variables, port_model, port_state
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SIZE, N_TEST = 32, 8
 EVAL = dict(lr_net=0.05, batch_train=4, epoch_eval_train=1, k_test=16,

@@ -22,6 +22,7 @@ from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
     build_bi_encoder,
     init_bi_encoder,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 KEYS = ["txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1", "img_r5",
         "img_r10", "img_r_mean", "r_mean"]

@@ -12,6 +12,7 @@ from multimodal_dataset_distillation_tpu_torch.config import Config, parse_confi
 from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
     build_bi_encoder,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 BASE = ["--dataset", "synthetic", "--image_encoder", "nf_tiny",
         "--image_size", "32", "--distilled_npz", "no_such_file.npz"]
@@ -35,9 +36,10 @@ def _cfg(extra, device="cpu"):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--image_encoder", "convnet"], "--image_encoder=convnet"),
-    (["--transfer", "True"], "--transfer"),
-    (["--only_has_image_projection", "True"], "--only_has_image_projection"),
+    (["--image_encoder", "convnext"], "--image_encoder=convnext"),
+    (["--image_encoder", "clip"], "--image_encoder=clip"),
+    (["--image_encoder", "convnext", "--transfer", "True"],
+     "--image_encoder=convnext"),
     (["--text_encoder", "clip"], "--text_encoder=clip"),
 ])
 def test_unported_flag_raises_before_data(no_data, extra, match):
@@ -67,9 +69,20 @@ def test_flags_the_jax_eval_never_reads_are_ignored(no_data, extra):
         eval_distilled.main(cfg, argv=[])
 
 
-@pytest.mark.parametrize("encoder", ["convnet", "vit"])
+@pytest.mark.parametrize("encoder", ["clip", "convnext"])
 def test_build_bi_encoder_names_the_roadmap_item(encoder):
     """An unported tower is a NotImplementedError naming ROADMAP item 16,
     not a KeyError from the feature-width table."""
     with pytest.raises(NotImplementedError, match="item 16"):
         build_bi_encoder(Config(image_encoder=encoder, device="cpu"))
+
+
+@pytest.mark.parametrize("extra", [
+    ["--image_encoder", "convnet"], ["--image_encoder", "vit"],
+    ["--image_encoder", "resnet50"], ["--transfer", "True"],
+    ["--image_encoder", "convnet", "--only_has_image_projection", "True"]])
+def test_ported_towers_and_heads_reach_the_data(no_data, extra):
+    """Every ported tower, the transfer head and the image projection (the
+    JAX eval CLI runs them all) pass the start-up checks."""
+    with pytest.raises(DataRead):
+        eval_distilled.main(_cfg(extra), argv=[])

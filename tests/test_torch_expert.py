@@ -36,6 +36,7 @@ from multimodal_dataset_distillation_tpu_torch.models.convert import (
     params_from_jax,
 )
 from multimodal_dataset_distillation_tpu_torch.utils.flat import flatten_params
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SIZE, B = 32, 4
 HYPER = dict(lr_img=0.05, lr_txt=0.05, momentum=0.9, weight_decay=5e-4)

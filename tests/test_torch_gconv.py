@@ -19,6 +19,7 @@ import torch
 
 from multimodal_dataset_distillation_tpu.ops import pallas_gconv as pg
 from multimodal_dataset_distillation_tpu_torch.ops import gconv as tg
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 def _data(G, cpg, N=2, H=5, seed=0):

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from multimodal_dataset_distillation_tpu_torch.ops import gconv as tg
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -65,6 +66,40 @@ def test_kernels_match_plain_on_card(card, dtype, G, cpg, opg):
     assert tg.LAUNCHES["gconv3x3_fwd" + fwd] == before["gconv3x3_fwd" + fwd] + 2
     assert (tg.LAUNCHES["gconv3x3_wgrad" + wgrad]
             == before["gconv3x3_wgrad" + wgrad] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,G", [
+    (4, 56, 11),     # NF-RegNet-B1's first grouped site, at 56^2
+    (8, 28, 23),     # its second shape
+    (16, 14, 45),    # its third
+    (16, 7, 92),     # its fourth: an even group count, 7^2
+    (3, 5, 11),      # a ragged pixel count
+])
+def test_cuda_core_kernels_at_8_channels_per_group(card, dtype, N, H, G):
+    """NF-RegNet-B1's grouped convs: 8 channels per group in and out, odd
+    group counts, on the CUDA-core kernels in both dtypes (the tensor-core
+    routes take only 64 per group): forward, input gradient and weight
+    gradient against the plain versions."""
+    c = G * 8
+    assert not tg.use_tc("fwd", dtype, 8, 8, H)
+    assert not tg.use_tf32("fwd", dtype, 8, 8, H)
+    x = torch.randn(N, H, H, c, device="cuda", generator=card).to(dtype)
+    w = (torch.randn(3, 3, 8, c, device="cuda", generator=card)
+         / 8.5).to(dtype)
+    ybar = torch.randn(N, H, H, c, device="cuda", generator=card).to(dtype)
+    xf, wf, ybf = x.float(), w.float(), ybar.float()
+    before = dict(tg.LAUNCHES)
+    _close(tg.gconv3x3_fwd(x, w, G), tg.gconv3x3_ref(xf, wf, G), dtype)
+    xr = xf.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(tg.gconv3x3_ref(xr, wf, G), xr, ybf)
+    _close(tg.gconv3x3_fwd(ybar, tg.rot_swap(w, G), G), dx, dtype)
+    _close(tg.gconv3x3_wgrad(x, ybar, G),
+           tg.gconv3x3_wgrad_ref(xf, ybf, G), dtype)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES["gconv3x3_fwd"] == before["gconv3x3_fwd"] + 2
+    assert tg.LAUNCHES["gconv3x3_wgrad"] == before["gconv3x3_wgrad"] + 1
 
 
 @pytest.mark.cuda

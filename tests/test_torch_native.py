@@ -26,6 +26,7 @@ from multimodal_dataset_distillation_tpu_torch.config import Config
 from multimodal_dataset_distillation_tpu_torch.data import create_dataset
 from multimodal_dataset_distillation_tpu_torch.data import transforms
 from multimodal_dataset_distillation_tpu_torch.utils import augrng
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SIZE = 32
 

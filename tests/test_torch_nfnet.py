@@ -46,6 +46,7 @@ from multimodal_dataset_distillation_tpu_torch.utils.flat import (
     FlatParams,
     flatten_params,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -37,6 +37,7 @@ from multimodal_dataset_distillation_tpu.ops import randaugment_device as jra
 from multimodal_dataset_distillation_tpu_torch.ops import (
     randaugment_device as pra,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 LEVELS = (0, 3, 5, 8, 10)
 EXACT = ("identity", "autocontrast", "equalize", "posterize", "solarize")

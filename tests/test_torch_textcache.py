@@ -26,6 +26,7 @@ from multimodal_dataset_distillation_tpu_torch.models import bert
 from multimodal_dataset_distillation_tpu_torch.models.convert import (
     bert_state_dict_from_jax,
 )
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 KW = dict(dataset="synthetic", image_size=16, synthetic_size=6,
           synthetic_test_size=3, text_encoder_config="tiny",
