@@ -9,10 +9,12 @@ beside this file; exits non-zero, and prints no result, otherwise.  Phases,
 each of which raises on failure:
 
 1. Build the grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
-   ``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores, and
-   ``csrc/gconv3x3_tf32.cu``, float32 on the tensor cores; one ``nvcc``
-   each for ``sm_90a``, started together) and print the card's name and
-   power limit.
+   ``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores,
+   ``csrc/gconv3x3_tf32.cu``, float32 on the tensor cores, and
+   ``csrc/gconv3x3_narrow.cu``, 8 channels per group in both dtypes; one
+   ``nvcc`` each for ``sm_90a``, started together), hold each source's
+   shared-memory sizes against their Python mirrors, and print the card's
+   name and power limit.
 2. Hold each kernel against its plain PyTorch version at NFNet-L0's three
    grouped-conv shapes, at mini-batch 100 (the distill step's and the
    eval students'), 128 (the expert trainer's and the test passes') and
@@ -68,13 +70,16 @@ each of which raises on failure:
    every student's nine metrics finite and in [0, 100]; launches exactly
    4 x phase 3's per step plus 2 x phase 5's per block at 2 students.
 9. The zoo's towers (BERT-base random-init caption caches, synthetic
-   data, the kernels on).  (d) first: the CUDA-core kernels at
-   NF-RegNet-B1's four grouped shapes (8 channels per group, 11/23/45/92
-   groups, 56^2 to 7^2) in float32 and bfloat16 at mini-batches 100 and
-   128 against the plain versions, timed beside cuDNN and the bound; one
-   float32 NF-RegNet-B1 outer step (mb=25, syn_steps=2) with the kernels
-   against ``F.conv2d``, held as phase 4.  (a) ViT-Tiny/16, NF-ResNet50,
-   NF-RegNet-B1 and ResNet-18-GN at 224^2 and ConvNet at 32^2, each through
+   data, the kernels on).  (d) first: the 8-channel kernels
+   (``gconv3x3_narrow.cu``, the route the rule takes) and the generic
+   CUDA-core kernels (``tc=False``) at NF-RegNet-B1's four grouped shapes
+   (8 channels per group, 11/23/45/92 groups, 56^2 to 7^2) in float32 and
+   bfloat16 at mini-batches 100, 128 and 104 against the plain versions
+   (the 8-channel wgrad twice, for the same bits), timed beside cuDNN and
+   the bound; one float32 NF-RegNet-B1 outer step (mb=25, syn_steps=2)
+   with the kernels against ``F.conv2d``, held as phase 4.  (a)
+   ViT-Tiny/16, NF-ResNet50, NF-RegNet-B1 and ResNet-18-GN at 224^2 and
+   ConvNet at 32^2, each through
    ``cli/buffer.main`` (1 expert x 2 epochs, float32, batch 128, 256 pairs,
    a 256 x 5 test split; buffers read back at the tower's width) and then
    ``cli/distill.main`` on those buffers (2 headline outer steps: nq=100,
@@ -85,16 +90,18 @@ each of which raises on failure:
    reading data.  (c) ``cli/eval_distilled.main`` on phase 3's distilled
    set under ViT, NF-ResNet50, NF-RegNet-B1, ResNet-50, ConvNet and NFNet-L0
    with ``--transfer``, 2 students each, on the 1000 x 5 test split.
-   Launches exact in every run: NF-RegNet-B1's 16 sites on the CUDA-core
+   Launches exact in every run: NF-RegNet-B1's 16 sites on the 8-channel
    kernels in either dtype, no kernel for the towers without grouped
-   convs.
+   convs, and the generic CUDA-core kernels on no path.
 
 Phase 2 also times the CUDA-core kernels and the TF32 kernels in float32
 (the dtype of phases 4-8's eval students) beside cuDNN's float32 call with
-TF32 off and on.
+TF32 off and on.  Phase 2 also runs a double-backward HVP at 8 channels per
+group in both dtypes (the 8-channel kernels).
 
-Then a ``{"kernels": [...]}`` line (the CUDA-core kernels' numbers at
-NF-RegNet-B1's sites, their phase-2 numbers at NFNet-L0's shapes beside),
+Then a ``{"kernels": [...]}`` line (the 8-channel kernels' and the
+generic CUDA-core kernels' numbers at NF-RegNet-B1's sites, the latter's
+phase-2 numbers at NFNet-L0's shapes beside),
 the ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -133,7 +140,7 @@ CHECK_BATCHES = (BATCH, 128, 104)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # x max|plain|; see below
 TPU_SRC = "multimodal_dataset_distillation_tpu/ops/pallas_gconv.py"
 L2_BYTES = 50e6      # H100 L2; the cold timings rotate through 3x this
-# the six kernels: LAUNCHES key -> (kind, route, source, TPU kernel line)
+# the eight kernels: LAUNCHES key -> (kind, route, source, TPU kernel line)
 KERNELS = {
     "gconv3x3_fwd": ("fwd", "simt", "gconv3x3.cu", 176),
     "gconv3x3_wgrad": ("wgrad", "simt", "gconv3x3.cu", 223),
@@ -141,7 +148,12 @@ KERNELS = {
     "gconv3x3_wgrad_tc": ("wgrad", "tc", "gconv3x3_tc.cu", 223),
     "gconv3x3_wgrad_tf32": ("wgrad", "tf32", "gconv3x3_tf32.cu", 223),
     "gconv3x3_fwd_tf32": ("fwd", "tf32", "gconv3x3_tf32.cu", 176),
+    "gconv3x3_fwd_narrow": ("fwd", "narrow", "gconv3x3_narrow.cu", 176),
+    "gconv3x3_wgrad_narrow": ("wgrad", "narrow", "gconv3x3_narrow.cu", 223),
 }
+# the wrappers' ``tc`` argument that holds each route: the rule's own
+# choice for the 8-channel kernels, the forced choice for the others
+ROUTE_TC = {"simt": False, "tc": True, "tf32": True, "narrow": None}
 # launches per outer step of the headline configuration: each grouped site
 # runs 8 forward-kernel and 4 wgrad-kernel calls per inner step
 MAIN_PATH_PER_STEP = {"gconv3x3_fwd_tc": 19 * 8 * 8,
@@ -150,7 +162,7 @@ METRIC_KEYS = ("txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1",
                "img_r5", "img_r10", "img_r_mean", "r_mean")
 # stride-1 grouped 3x3 sites per tower pass, of the towers that have them:
 # NFNet-L0's at 64 channels per group (the tensor-core kernels) and
-# NF-RegNet-B1's at 8 (the CUDA-core kernels, in both dtypes)
+# NF-RegNet-B1's at 8 (the 8-channel kernels, in both dtypes)
 TOWER_SITES = {"nfnet": 19, "nf_regnet": 16}
 # NF-RegNet-B1's sites at 224^2: (H, C, groups) -> count
 REGNET_SITES = {(56, 88, 11): 1, (28, 184, 23): 3, (14, 360, 45): 6,
@@ -163,7 +175,7 @@ def site_launches(encoder: str, dtype: str, fwd: int, wgrad: int) -> dict:
     out = dict.fromkeys(KERNELS, 0)
     n = TOWER_SITES.get(encoder, 0)
     if encoder == "nf_regnet":
-        keys = ("gconv3x3_fwd", "gconv3x3_wgrad")
+        keys = ("gconv3x3_fwd_narrow", "gconv3x3_wgrad_narrow")
     else:
         route = "tf32" if dtype == "float32" else "tc"
         keys = (f"gconv3x3_fwd_{route}", f"gconv3x3_wgrad_{route}")
@@ -282,15 +294,23 @@ ROUTES = ((torch.float32, "simt"), (torch.float32, "tf32"),
           (torch.bfloat16, "simt"), (torch.bfloat16, "tc"))
 
 
+def route_keys(route: str) -> tuple:
+    """The LAUNCHES keys of a route's forward and wgrad kernels."""
+    sfx = "" if route == "simt" else f"_{route}"
+    return f"gconv3x3_fwd{sfx}", f"gconv3x3_wgrad{sfx}"
+
+
 def check_shape(gc, row, x32, w32, yb32, groups, routes=ROUTES):
     """Each route's forward, dgrad and wgrad at one shape against the plain
-    version; ``row`` keeps each error's largest over the shapes."""
+    version, and that they ran on that route's kernels and no other;
+    ``row`` keeps each error's largest over the shapes."""
     for dtype, route in routes:
         x, w, yb = x32.to(dtype), w32.to(dtype), yb32.to(dtype)
         xf, wf, ybf = x.float(), w.float(), yb.float()
-        tc = route != "simt"
+        tc = ROUTE_TC[route]
         tag = f"{route}_{'f32' if dtype == torch.float32 else 'bf16'}"
         print(f"  {route} kernels:", flush=True)
+        before = dict(gc.LAUNCHES)
         y = gc.gconv3x3_fwd(x, w, groups, tc=tc)
         errs = {"fwd": check("fwd", y, gc.gconv3x3_ref(xf, wf, groups),
                              dtype)}
@@ -306,9 +326,12 @@ def check_shape(gc, row, x32, w32, yb32, groups, routes=ROUTES):
         dw = gc.gconv3x3_wgrad(x, yb, groups, tc=tc)
         errs["wgrad"] = check(
             "wgrad", dw, gc.gconv3x3_wgrad_ref(xf, ybf, groups), dtype)
-        if tc and not torch.equal(dw, gc.gconv3x3_wgrad(x, yb, groups,
-                                                        tc=True)):
-            raise AssertionError("tensor-core wgrad differs on repeat")
+        if route != "simt" and not torch.equal(
+                dw, gc.gconv3x3_wgrad(x, yb, groups, tc=tc)):
+            raise AssertionError(f"{route} wgrad differs on repeat")
+        ran = {k: gc.LAUNCHES[k] - before[k] for k in gc.LAUNCHES}
+        if {k for k, n in ran.items() if n} != set(route_keys(route)):
+            raise AssertionError(f"{route} {dtype} checks launched {ran}")
         for kind, e in errs.items():
             key = f"{kind}_err_{tag}"
             row[key] = max(row.get(key, 0.0), e)
@@ -359,7 +382,7 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
             torch.backends.cudnn.allow_tf32 = False
         raw = getattr(gc, f"gconv3x3_{kind}")
         for route in routes[kind]:
-            call = (lambda a, b, tc=(route != "simt"):
+            call = (lambda a, b, tc=ROUTE_TC[route]:
                     raw(a, b, groups, tc=tc))
             row[f"{kind}_{route}{sfx}_ms"] = cuda_ms(call, warm)
             row[f"{kind}_{route}{sfx}_cold_ms"] = cuda_ms(call, cold)
@@ -380,45 +403,54 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
 def check_hvp(gc):
     """Double backward through GConv3x3 (its backward is GConv3x3 and
     GConv3x3Wgrad applies, so the HVP runs on the kernels) against autograd
-    through the plain version.  float32 on the TF32 forward and wgrad,
-    tolerance 1e-4 of the largest plain value.  bfloat16 on the tensor-core
-    kernels against the plain version in bfloat16 on the same operands:
-    both round every intermediate (conv outputs, sin, cos, products) to
-    bfloat16 at the same places and differ only in the order of the
-    float32 sums inside each conv, so 2e-2 of the largest plain value (a
-    few bfloat16 ulps, 2^-8 each, carried through two chained convs)."""
+    through the plain version, at 64 channels per group (float32 on the
+    TF32 forward and wgrad, bfloat16 on the tensor-core kernels) and at 8
+    (the 8-channel kernels in both dtypes).  float32 tolerance 1e-4 of the
+    largest plain value.  bfloat16 against the plain version in bfloat16 on
+    the same operands: both round every intermediate (conv outputs, sin,
+    cos, products) to bfloat16 at the same places and differ only in the
+    order of the float32 sums inside each conv, so 2e-2 of the largest
+    plain value (a few bfloat16 ulps, 2^-8 each, carried through two
+    chained convs)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    groups, cpg = 2, 64
-    x = torch.randn(2, 6, 6, groups * cpg, device="cuda", generator=gen)
-    w = torch.randn(3, 3, cpg, groups * cpg, device="cuda",
-                    generator=gen) / 24.0
-    vx, vw = torch.randn_like(x), torch.randn_like(w) / 24.0
+    # (groups, channels per group, image size, (dtype, route) pairs)
+    for groups, cpg, h, runs in (
+            (2, 64, 6, ((torch.float32, "tf32"), (torch.bfloat16, "tc"))),
+            (11, 8, 7, ((torch.float32, "narrow"),
+                        (torch.bfloat16, "narrow")))):
+        x = torch.randn(2, h, h, groups * cpg, device="cuda", generator=gen)
+        scale = math.sqrt(9 * cpg)
+        w = torch.randn(3, 3, cpg, groups * cpg, device="cuda",
+                        generator=gen) / scale
+        vx, vw = torch.randn_like(x), torch.randn_like(w) / scale
+        for dtype, route in runs:
+            def hvp(conv):
+                xx = x.to(dtype).requires_grad_()
+                ww = w.to(dtype).requires_grad_()
+                gx, gw = torch.autograd.grad(
+                    torch.sin(conv(xx, ww, groups)).sum(), (xx, ww),
+                    create_graph=True)
+                return torch.autograd.grad(
+                    (gx * vx.to(dtype)).sum() + (gw * vw.to(dtype)).sum(),
+                    (xx, ww))
 
-    def hvp(conv, dtype):
-        xx = x.to(dtype).requires_grad_()
-        ww = w.to(dtype).requires_grad_()
-        gx, gw = torch.autograd.grad(torch.sin(conv(xx, ww, groups)).sum(),
-                                     (xx, ww), create_graph=True)
-        return torch.autograd.grad(
-            (gx * vx.to(dtype)).sum() + (gw * vw.to(dtype)).sum(), (xx, ww))
-
-    for dtype, keys in ((torch.float32, ("gconv3x3_fwd_tf32",
-                                         "gconv3x3_wgrad_tf32")),
-                        (torch.bfloat16, ("gconv3x3_fwd_tc",
-                                          "gconv3x3_wgrad_tc"))):
-        before = dict(gc.LAUNCHES)
-        got = hvp(gc.gconv3x3, dtype)
-        for k in keys:
-            if gc.LAUNCHES[k] == before[k]:
-                raise AssertionError(f"the {dtype} HVP did not reach {k}")
-        want = hvp(gc.gconv3x3_ref, dtype)
-        tol = 1e-4 if dtype == torch.float32 else 2e-2
-        for name, a, b in zip(("hvp_x", "hvp_w"), got, want):
-            err, scale = max_err(a, b.float())
-            print(f"  {name:<6} {str(dtype)[6:]:<8} max_abs_err {err:.3e}  "
-                  f"max|plain| {scale:.3e}  tol {tol * scale:.3e}", flush=True)
-            if not err <= tol * scale:
-                raise AssertionError(f"{name} {dtype}: {err} > {tol} x {scale}")
+            before = dict(gc.LAUNCHES)
+            got = hvp(gc.gconv3x3)
+            torch.cuda.synchronize()
+            ran = {k for k in gc.LAUNCHES if gc.LAUNCHES[k] != before[k]}
+            if ran != set(route_keys(route)):
+                raise AssertionError(f"the {dtype} HVP at {cpg} channels per "
+                                     f"group launched {sorted(ran)}")
+            want = hvp(gc.gconv3x3_ref)
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            for name, a, b in zip(("hvp_x", "hvp_w"), got, want):
+                err, big = max_err(a, b.float())
+                print(f"  {name:<6} cpg {cpg:<3} {str(dtype)[6:]:<8} "
+                      f"max_abs_err {err:.3e}  max|plain| {big:.3e}  tol "
+                      f"{tol * big:.3e}", flush=True)
+                if not err <= tol * big:
+                    raise AssertionError(f"{name} {dtype} cpg {cpg}: {err} > "
+                                         f"{tol} x {big}")
 
 
 def main_cfg(Config, **kw):
@@ -1383,19 +1415,22 @@ def zoo_batchnorm_path(gc, Config, size: int = 224, **kw):
 
 
 def check_kernels_regnet(gc):
-    """Phase 9 (d): the CUDA-core kernels at NF-RegNet-B1's four grouped
-    shapes (8 channels per group, odd group counts), forward, dgrad and
-    wgrad in float32 and bfloat16 at every mini-batch of ``CHECK_BATCHES``:
-    100 (the distill step and the eval students), 128 (the expert trainer,
-    the test passes) and 104 (the tail of the 1000-pair test split of
-    (c)'s evals), against the plain versions with phase 2's tolerances;
-    timed warm and cold at mini-batch 100 beside cuDNN's call (float32:
-    TF32 off and on) and the bound."""
+    """Phase 9 (d): the 8-channel kernels (the route the rule takes) and
+    the generic CUDA-core kernels (``tc=False``) at NF-RegNet-B1's four
+    grouped shapes (8 channels per group, odd group counts), forward,
+    dgrad and wgrad in float32 and bfloat16 at every mini-batch of
+    ``CHECK_BATCHES``: 100 (the distill step and the eval students), 128
+    (the expert trainer, the test passes) and 104 (the tail of the
+    1000-pair test split of (c)'s evals), against the plain versions with
+    phase 2's tolerances, the 8-channel wgrad twice for the same bits;
+    both routes timed warm and cold at mini-batch 100 beside cuDNN's call
+    (float32: TF32 off and on) and the bound."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2)
-    simt = ((torch.float32, "simt"), (torch.bfloat16, "simt"))
-    only = {"fwd": ("simt",), "wgrad": ("simt",)}
+    routes = tuple((dtype, route) for route in ("narrow", "simt")
+                   for dtype in (torch.float32, torch.bfloat16))
+    both = {"fwd": ("narrow", "simt"), "wgrad": ("narrow", "simt")}
     rows = []
     for (h, c, groups), sites in REGNET_SITES.items():
         cpg = c // groups
@@ -1408,11 +1443,11 @@ def check_kernels_regnet(gc):
             print(f"NF-RegNet-B1 shape x=({batch},{h},{h},{c}) "
                   f"groups={groups} ({sites} sites per tower pass)",
                   flush=True)
-            check_shape(gc, row, x32, w32, yb32, groups, simt)
+            check_shape(gc, row, x32, w32, yb32, groups, routes)
         (x32, yb32), inputs = inputs[BATCH], None
         time_row(gc, row, x32.bfloat16(), w32.bfloat16(), yb32.bfloat16(),
-                 groups, only, "", PEAK_BF16)
-        time_row(gc, row, x32, w32, yb32, groups, only, "_f32", PEAK_FP32)
+                 groups, both, "", PEAK_BF16)
+        time_row(gc, row, x32, w32, yb32, groups, both, "_f32", PEAK_FP32)
         rows.append(row)
     return rows
 
@@ -1464,14 +1499,17 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
     dtype of the paths that launch it.  The tensor-core kernels at NFNet-L0's
     19 sites: bf16 for the bf16 ones, float32 for the TF32 ones (phases 4-8;
     their bound: three passes at the TF32 rate, the CUDA cores' float32
-    bound beside as ``bound_fp32_ms``).  The CUDA-core kernels at
+    bound beside as ``bound_fp32_ms``).  The 8-channel kernels at
     NF-RegNet-B1's 16 sites, their path since phase 9, float32 (the buffer
     and eval students) with bfloat16 (the distill step) beside as
-    ``*_bf16``, and their phase-2 numbers at NFNet-L0's shapes under
+    ``*_bf16``.  The generic CUDA-core kernels at the same sites with
+    ``tc=False`` (on no path since the 8-channel kernels), laid out the
+    same, and their phase-2 numbers at NFNet-L0's shapes under
     ``nfnet_shapes``.  ``launches``: of the bf16 tensor-core kernels phase
     3's (the bf16 main path), of the TF32 ones phase 4's (the float32 outer
-    step), of the CUDA-core ones phase 9 (a)'s NF-RegNet-B1 distill CLI
-    run; ``launches_eval``: phase 5's (the eval path); ``launches_expert``:
+    step), of the 8-channel and the CUDA-core ones phase 9 (a)'s
+    NF-RegNet-B1 distill CLI run; ``launches_eval``: phase 5's (the eval
+    path); ``launches_expert``:
     phase 7's per run of the buffer CLI; ``launches_cli``: phase 8's (the
     distill CLI, all routes); ``launches_zoo``: phase 9's per run.  Each
     entry, and its ``nfnet_shapes``, names the tower whose shapes its
@@ -1508,7 +1546,7 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
             keys.append(f"{kind}_library{sfx}_tf32_ms")
         if route == "tf32":
             entry["bound_fp32_ms"] = total(f"{kind}_bound{sfx}_ms")
-        if route == "simt":   # this route's bf16 times
+        if route in ("simt", "narrow"):   # this route's bf16 times
             entry.update({
                 "max_abs_err_bf16": err(f"{route}_bf16"),
                 "ms_bf16": total(f"{kind}_{route}_ms"),
@@ -1524,12 +1562,13 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
         entry = {"name": name, "route": "cuda",
                  "source": f"{PKG}/csrc/{src}",
                  "replaces": f"{TPU_SRC}:{line}"}
-        if route == "simt":
+        if route in ("simt", "narrow"):
             entry["tower"] = "nf_regnet_b1"
             entry.update(measures(name, kind, route, sfx, regnet_rows))
-            entry["nfnet_shapes"] = {
-                "tower": "nfnet_l0",
-                **measures(name, kind, route, sfx, rows)}
+            if route == "simt":
+                entry["nfnet_shapes"] = {
+                    "tower": "nfnet_l0",
+                    **measures(name, kind, route, sfx, rows)}
             entry["launches"] = launches_zoo["distill_nf_regnet"][name]
         else:
             entry["tower"] = "nfnet_l0"
@@ -1563,6 +1602,14 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = gc.build(verbose=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for h, _, _ in REGNET_SITES:
+        for i, kind in enumerate(("fwd", "wgrad")):
+            for size in (2, 4):
+                if (libs.narrow.mdd_gconv3x3_narrow_smem(i, size, h)
+                        != gc.narrow_smem_bytes(kind, size, h)):
+                    raise AssertionError(
+                        f"narrow_smem_bytes({kind!r}, {size}, {h}) differs "
+                        f"from gconv3x3_narrow.cu")
     for h, _, _ in SITES:   # the planner's shared-memory sizes are the .cu's
         for i, kind in enumerate(("fwd", "wgrad")):
             if libs.tc.mdd_gconv3x3_tc_smem(i, h) != gc.tc_smem_bytes(kind, h):

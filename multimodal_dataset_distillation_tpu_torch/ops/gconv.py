@@ -3,7 +3,7 @@ autograd wiring.
 
 Counterpart of ``multimodal_dataset_distillation_tpu/ops/pallas_gconv.py``.
 The two TPU kernels there (``_spatial_kernel`` and ``_wgrad_kernel``) have
-three CUDA routes here, each built with ``nvcc`` for ``sm_90a`` into
+four CUDA routes here, each built with ``nvcc`` for ``sm_90a`` into
 ``build/kernels/`` at first use (all sources at once) and called through
 ``ctypes``:
 
@@ -13,11 +13,16 @@ three CUDA routes here, each built with ``nvcc`` for ``sm_90a`` into
 * ``csrc/gconv3x3_tf32.cu``: float32 at that width (forward, dgrad and
   wgrad) on the tensor cores, in three TF32 passes (hi*hi + hi*lo + lo*hi
   of the operands split by :func:`tf32_split`), float32-accurate;
+* ``csrc/gconv3x3_narrow.cu``: 8 input and 8 output channels per group
+  (every grouped site of NF-RegNet-B1) in float32 and bfloat16: a block
+  spans up to 8 groups and a run of pixel tiles; bf16 on ``mma.sync``
+  tensor cores, the float32 forward on ``mma.sync`` TF32 in three passes,
+  the float32 wgrad on CUDA-core FMAs from shared memory;
 * ``csrc/gconv3x3.cu``: CUDA-core float32-FMA kernels for everything else
-  (other group widths, images too wide for the tensor-core tiles).
+  (other group widths, images too wide for the other kernels' tiles).
 
-:func:`use_tc` and :func:`use_tf32` are the rule between them, by dtype and
-shape alone.
+:func:`use_tc`, :func:`use_tf32` and :func:`use_narrow` are the rule
+between them, by dtype and shape alone.
 
 Public layout is the JAX one: NHWC activations x HWIO weights.
 
@@ -53,16 +58,19 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = {"simt": (_CSRC / "gconv3x3.cu", _BUILD_DIR / "libgconv.so"),
             "tc": (_CSRC / "gconv3x3_tc.cu", _BUILD_DIR / "libgconv_tc.so"),
             "tf32": (_CSRC / "gconv3x3_tf32.cu",
-                     _BUILD_DIR / "libgconv_tf32.so")}
+                     _BUILD_DIR / "libgconv_tf32.so"),
+            "narrow": (_CSRC / "gconv3x3_narrow.cu",
+                       _BUILD_DIR / "libgconv_narrow.so")}
 
 #: kernel launches per wrapper route, counted where the wrapper launches:
 #: ``gconv3x3_fwd``/``gconv3x3_wgrad`` are the CUDA-core kernels,
 #: ``*_tc`` the bfloat16 tensor-core ones, ``*_tf32`` the float32
 #: tensor-core ones (the forward's weight pre-pass and main kernel are one
-#: launch of its entry point)
+#: launch of its entry point), ``*_narrow`` the 8-channels-per-group ones
 LAUNCHES = {"gconv3x3_fwd": 0, "gconv3x3_wgrad": 0,
             "gconv3x3_fwd_tc": 0, "gconv3x3_wgrad_tc": 0,
-            "gconv3x3_wgrad_tf32": 0, "gconv3x3_fwd_tf32": 0}
+            "gconv3x3_wgrad_tf32": 0, "gconv3x3_fwd_tf32": 0,
+            "gconv3x3_fwd_narrow": 0, "gconv3x3_wgrad_narrow": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132            # H100 SXM streaming multiprocessors
@@ -81,12 +89,19 @@ _FWD_TC_BLOCKS_PER_SM = 2         # __launch_bounds__ of gconv3x3_fwd_tc
 _FWD_TF32_BLOCKS_PER_SM = 1       # __launch_bounds__ of gconv3x3_fwd_tf32
 _TF32_SLOT = 2 * TC_WIDTH * TC_WIDTH * 4   # one tap's weight, hi + lo
 _TF32_SLOTS = 3                   # the forward's weight ring
+# gconv3x3_narrow.cu
+NARROW_WIDTH = 8      # channels per group, in and out
+NARROW_CHUNK = 8      # groups per block
+# __launch_bounds__ of its kernels, by (kind, operand size)
+_NARROW_BLOCKS_PER_SM = {("fwd", 2): 3, ("fwd", 4): 2, ("wgrad", 2): 2,
+                         ("wgrad", 4): 2}
 
 
 class _Libs(NamedTuple):
     simt: ctypes.CDLL
     tc: ctypes.CDLL
     tf32: ctypes.CDLL
+    narrow: ctypes.CDLL
 
 
 _libs: Optional[_Libs] = None
@@ -138,8 +153,8 @@ def build(verbose: bool = False) -> _Libs:
         os.replace(tmp, _SOURCES[name][1])  # atomic: old or new, never half
     if failed:
         raise RuntimeError("\n".join(failed))
-    simt, tc, tf32 = (ctypes.CDLL(str(_SOURCES[name][1]))
-                      for name in _Libs._fields)
+    simt, tc, tf32, narrow = (ctypes.CDLL(str(_SOURCES[name][1]))
+                              for name in _Libs._fields)
     p, i = ctypes.c_void_p, ctypes.c_int
     simt.mdd_gconv3x3_fwd.argtypes = [p, p, p] + [i] * 7 + [p]
     simt.mdd_gconv3x3_wgrad.argtypes = [p, p, p, p] + [i] * 9 + [p]
@@ -149,12 +164,18 @@ def build(verbose: bool = False) -> _Libs:
     tf32.mdd_gconv3x3_fwd_tf32.argtypes = [p, p, p, p] + [i] * 5 + [p]
     tf32.mdd_gconv3x3_wgrad_tf32.argtypes = [p, p, p, p] + [i] * 6 + [p]
     tf32.mdd_gconv3x3_tf32_smem.argtypes = [i, i]
+    narrow.mdd_gconv3x3_fwd_narrow.argtypes = [p, p, p] + [i] * 6 + [p]
+    narrow.mdd_gconv3x3_wgrad_narrow.argtypes = [p, p, p, p] + [i] * 6 + [p]
+    narrow.mdd_gconv3x3_narrow_smem.argtypes = [i, i, i]
     for fn in (simt.mdd_gconv3x3_fwd, simt.mdd_gconv3x3_wgrad,
                tc.mdd_gconv3x3_fwd_tc, tc.mdd_gconv3x3_wgrad_tc,
                tc.mdd_gconv3x3_tc_smem, tf32.mdd_gconv3x3_fwd_tf32,
-               tf32.mdd_gconv3x3_wgrad_tf32, tf32.mdd_gconv3x3_tf32_smem):
+               tf32.mdd_gconv3x3_wgrad_tf32, tf32.mdd_gconv3x3_tf32_smem,
+               narrow.mdd_gconv3x3_fwd_narrow,
+               narrow.mdd_gconv3x3_wgrad_narrow,
+               narrow.mdd_gconv3x3_narrow_smem):
         fn.restype = i
-    _libs = _Libs(simt, tc, tf32)
+    _libs = _Libs(simt, tc, tf32, narrow)
     return _libs
 
 
@@ -212,6 +233,69 @@ def use_tf32(kind: str, dtype: torch.dtype, cpg: int, opg: int,
     smem = {"fwd": tf32_fwd_smem_bytes, "wgrad": tf32_smem_bytes}[kind]
     return (dtype == torch.float32 and cpg == TC_WIDTH and opg == TC_WIDTH
             and smem(width) <= _SMEM_BLOCK_MAX)
+
+
+def narrow_tile(kind: str, itemsize: int) -> int:
+    """Pixels per tile of the 8-channel kernel of ``kind`` ("fwd" or
+    "wgrad") and operand size ``itemsize`` (2 or 4 bytes): ``tile_of`` of
+    gconv3x3_narrow.cu (64 for the float32 wgrad, 128 otherwise)."""
+    if kind not in ("fwd", "wgrad"):
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    return 64 if kind == "wgrad" and itemsize == 4 else 128
+
+
+def narrow_smem_bytes(kind: str, itemsize: int, width: int) -> int:
+    """Dynamic shared memory of the 8-channel kernel of ``kind`` at image
+    width ``width``: ``smem_bytes`` of gconv3x3_narrow.cu.  Rows of 64
+    channels and 16 bytes of padding: a ring of pixel rows (one tile's halo
+    and the next tile's new rows, rounded up to 8), the bf16 forward's
+    output tile or the wgrads' two ybar tiles, then tap masks and a zero
+    row."""
+    tile = narrow_tile(kind, itemsize)
+    pitch = NARROW_CHUNK * NARROW_WIDTH * itemsize + 16
+    ring = math.ceil((2 * tile + 2 * width + 2) / 8) * 8
+    tiles = 2 if kind == "wgrad" else 1 if itemsize == 2 else 0
+    return (ring + tiles * tile) * pitch + 2 * tile + 16
+
+
+def use_narrow(dtype: torch.dtype, cpg: int, opg: int, width: int) -> bool:
+    """The rule of the 8-channel kernels (forward, also the dgrad, and
+    wgrad): float32 or bfloat16 with 8 input and 8 output channels per
+    group, unless the image is so wide that a block's ring of pixel rows
+    exceeds its shared memory in either kernel (wider than 295 pixels in
+    float32, 547 in bfloat16)."""
+    return (dtype in _DTYPE_CODE and cpg == NARROW_WIDTH
+            and opg == NARROW_WIDTH
+            and all(narrow_smem_bytes(kind, dtype.itemsize, width)
+                    <= _SMEM_BLOCK_MAX for kind in ("fwd", "wgrad")))
+
+
+def narrow_chunks(groups: int) -> int:
+    """Blocks across the channels, each of at most 8 groups (64 channels):
+    both kernels' grid.x."""
+    return math.ceil(groups / NARROW_CHUNK)
+
+
+def narrow_chunk_groups(groups: int) -> list:
+    """The groups of each chunk, ``range(first, stop)``: ``chunk_first`` of
+    gconv3x3_narrow.cu, sizes that differ by at most one (G = 11 -> 5 and
+    6), so that no block is left with a sliver of the work."""
+    n = narrow_chunks(groups)
+    return [range(c * groups // n, (c + 1) * groups // n) for c in range(n)]
+
+
+def narrow_runs(kind: str, m: int, groups: int, itemsize: int, width: int,
+                sms: int = _SMS) -> int:
+    """Runs of the 8-channel kernel of ``kind``, its grid.y: as many blocks
+    (runs x chunks) as fit on the card at once, but no more runs than
+    tiles.  Run r covers tiles [r * tiles // runs, (r + 1) * tiles //
+    runs): runs differ by at most one tile.  The wgrad's partials are one
+    per run."""
+    tiles = math.ceil(m / narrow_tile(kind, itemsize))
+    smem = narrow_smem_bytes(kind, itemsize, width)
+    per_sm = max(1, min(_NARROW_BLOCKS_PER_SM[kind, itemsize],
+                        _SMEM_SM // (smem + _SMEM_RESERVED)))
+    return max(1, min(tiles, per_sm * sms // narrow_chunks(groups)))
 
 
 def fwd_tc_blocks(m: int, groups: int, smem: int, blocks_per_sm: int,
@@ -346,9 +430,10 @@ def _cuda_check(name: str, *ts: torch.Tensor) -> int:
 
 def _route(name: str, kind: str, tc: Optional[bool], dtype: torch.dtype,
            cpg: int, opg: int, width: int, *ts: torch.Tensor) -> str:
-    """-> "tc", "tf32" or "simt".  ``tc`` None applies :func:`use_tc` and
-    :func:`use_tf32`; True demands the tensor-core kernel of the dtype (and
-    raises where none applies), False the CUDA-core one."""
+    """-> "tc", "tf32", "narrow" or "simt".  ``tc`` None applies
+    :func:`use_tc`, :func:`use_tf32` and :func:`use_narrow`; True demands
+    the 64-wide tensor-core kernel of the dtype (and raises where none
+    applies), False the generic CUDA-core one."""
     fits = ("tc" if use_tc(kind, dtype, cpg, opg, width) else
             "tf32" if use_tf32(kind, dtype, cpg, opg, width) else None)
     if tc and fits is None:
@@ -356,7 +441,11 @@ def _route(name: str, kind: str, tc: Optional[bool], dtype: torch.dtype,
                          f"or float32 with {TC_WIDTH} channels per "
                          f"group in and out and width <= its shared memory; "
                          f"got {dtype}, {cpg}->{opg}, width {width}")
-    route = (fits or "simt") if tc is None else (fits if tc else "simt")
+    if tc is None:
+        route = fits or ("narrow" if use_narrow(dtype, cpg, opg, width)
+                         else "simt")
+    else:
+        route = fits if tc else "simt"
     if route != "simt" and any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: the tensor-core kernel needs 16-byte "
                          f"aligned operands")
@@ -407,6 +496,13 @@ def gconv3x3_fwd(x: torch.Tensor, w: torch.Tensor, groups: int,
             _launched("gconv3x3_fwd_tf32", libs.tf32.mdd_gconv3x3_fwd_tf32(
                 x.data_ptr(), w.data_ptr(), wp.data_ptr(), y.data_ptr(), n,
                 h, wd, groups, blocks, stream))
+        elif route == "narrow":
+            runs = narrow_runs("fwd", n * h * wd, groups, x.element_size(),
+                               wd, _sm_count(x.device))
+            _launched("gconv3x3_fwd_narrow",
+                      libs.narrow.mdd_gconv3x3_fwd_narrow(
+                          x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd,
+                          groups, runs, code, stream))
         else:
             _launched("gconv3x3_fwd", libs.simt.mdd_gconv3x3_fwd(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, groups,
@@ -449,6 +545,9 @@ def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor, groups: int,
                    ybar, dw)
     if route == "simt":
         splits, per = wgrad_splits(m, groups, cpg, opg)
+    elif route == "narrow":
+        splits = narrow_runs("wgrad", m, groups, x.element_size(), wd,
+                             _sm_count(x.device))
     else:
         splits, per = wgrad_tc_splits(m, groups, _sm_count(x.device))
     ws = torch.empty(splits * groups * 9 * cpg * opg, dtype=torch.float32,
@@ -465,6 +564,12 @@ def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor, groups: int,
                       libs.tf32.mdd_gconv3x3_wgrad_tf32(
                           x.data_ptr(), ybar.data_ptr(), ws.data_ptr(),
                           dw.data_ptr(), n, h, wd, groups, splits, per,
+                          stream))
+        elif route == "narrow":
+            _launched("gconv3x3_wgrad_narrow",
+                      libs.narrow.mdd_gconv3x3_wgrad_narrow(
+                          x.data_ptr(), ybar.data_ptr(), ws.data_ptr(),
+                          dw.data_ptr(), n, h, wd, groups, splits, code,
                           stream))
         else:
             _launched("gconv3x3_wgrad", libs.simt.mdd_gconv3x3_wgrad(

@@ -1,6 +1,8 @@
 """The grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
-``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores, and ``csrc/gconv3x3_tf32.cu``,
-the float32 forward and wgrad on the tensor cores) on the card.
+``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores, ``csrc/gconv3x3_tf32.cu``,
+the float32 forward and wgrad on the tensor cores, and
+``csrc/gconv3x3_narrow.cu``, 8 channels per group in both dtypes) on the
+card.
 
 Marker ``cuda``: these skip where ``torch.cuda.is_available()`` is false.
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -79,12 +81,46 @@ def test_kernels_match_plain_on_card(card, dtype, G, cpg, opg):
 ])
 def test_cuda_core_kernels_at_8_channels_per_group(card, dtype, N, H, G):
     """NF-RegNet-B1's grouped convs: 8 channels per group in and out, odd
-    group counts, on the CUDA-core kernels in both dtypes (the tensor-core
-    routes take only 64 per group): forward, input gradient and weight
-    gradient against the plain versions."""
+    group counts, on the generic CUDA-core kernels in both dtypes
+    (``tc=False``: the rule takes the 8-channel kernels there): forward,
+    input gradient and weight gradient against the plain versions."""
     c = G * 8
     assert not tg.use_tc("fwd", dtype, 8, 8, H)
     assert not tg.use_tf32("fwd", dtype, 8, 8, H)
+    x = torch.randn(N, H, H, c, device="cuda", generator=card).to(dtype)
+    w = (torch.randn(3, 3, 8, c, device="cuda", generator=card)
+         / 8.5).to(dtype)
+    ybar = torch.randn(N, H, H, c, device="cuda", generator=card).to(dtype)
+    xf, wf, ybf = x.float(), w.float(), ybar.float()
+    before = dict(tg.LAUNCHES)
+    _close(tg.gconv3x3_fwd(x, w, G, tc=False), tg.gconv3x3_ref(xf, wf, G),
+           dtype)
+    xr = xf.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(tg.gconv3x3_ref(xr, wf, G), xr, ybf)
+    _close(tg.gconv3x3_fwd(ybar, tg.rot_swap(w, G), G, tc=False), dx, dtype)
+    _close(tg.gconv3x3_wgrad(x, ybar, G, tc=False),
+           tg.gconv3x3_wgrad_ref(xf, ybf, G), dtype)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES["gconv3x3_fwd"] == before["gconv3x3_fwd"] + 2
+    assert tg.LAUNCHES["gconv3x3_wgrad"] == before["gconv3x3_wgrad"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,G", [
+    (4, 56, 11),     # NF-RegNet-B1's first grouped site, at 56^2
+    (8, 28, 23),     # its second shape
+    (16, 14, 45),    # its third
+    (16, 7, 92),     # its fourth: an even group count, 7^2
+    (3, 5, 11),      # a ragged pixel count
+])
+def test_narrow_kernels_match_plain_on_card(card, dtype, N, H, G):
+    """The same shapes on the route the rule takes, the 8-channel kernels
+    (a block spans up to 8 groups; 11, 23, 45 and 92 split into chunks of
+    5-8): forward, input gradient and weight gradient against the plain
+    versions, and no other kernel launched."""
+    c = G * 8
+    assert tg.use_narrow(dtype, 8, 8, H)
     x = torch.randn(N, H, H, c, device="cuda", generator=card).to(dtype)
     w = (torch.randn(3, 3, 8, c, device="cuda", generator=card)
          / 8.5).to(dtype)
@@ -98,8 +134,74 @@ def test_cuda_core_kernels_at_8_channels_per_group(card, dtype, N, H, G):
     _close(tg.gconv3x3_wgrad(x, ybar, G),
            tg.gconv3x3_wgrad_ref(xf, ybf, G), dtype)
     torch.cuda.synchronize()
-    assert tg.LAUNCHES["gconv3x3_fwd"] == before["gconv3x3_fwd"] + 2
-    assert tg.LAUNCHES["gconv3x3_wgrad"] == before["gconv3x3_wgrad"] + 1
+    after = dict(before, gconv3x3_fwd_narrow=before["gconv3x3_fwd_narrow"] + 2,
+                 gconv3x3_wgrad_narrow=before["gconv3x3_wgrad_narrow"] + 1)
+    assert tg.LAUNCHES == after
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_narrow_wgrad_is_bit_identical_on_repeat(card, dtype):
+    """The split wgrad adds its per-block partials in a fixed order (and
+    the float32 one its four pixel phases in a fixed pattern): two calls
+    give the same bits."""
+    x = torch.randn(100, 28, 28, 184, device="cuda", generator=card).to(dtype)
+    ybar = torch.randn(100, 28, 28, 184, device="cuda",
+                       generator=card).to(dtype)
+    assert torch.equal(tg.gconv3x3_wgrad(x, ybar, 23),
+                       tg.gconv3x3_wgrad(x, ybar, 23))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_double_backward_at_8_channels_per_group(card, dtype):
+    """The HVP through GConv3x3 at NF-RegNet-B1's width: every conv of the
+    backward and of the backward's backward on the 8-channel kernels,
+    against autograd through the plain version in the same dtype."""
+    G = 11
+    x = torch.randn(2, 7, 7, G * 8, device="cuda", generator=card)
+    w = torch.randn(3, 3, 8, G * 8, device="cuda", generator=card) / 8.5
+    vx, vw = torch.randn_like(x), torch.randn_like(w) / 8.5
+
+    def hvp(conv):
+        xx = x.to(dtype).requires_grad_()
+        ww = w.to(dtype).requires_grad_()
+        gx, gw = torch.autograd.grad(torch.sin(conv(xx, ww, G)).sum(),
+                                     (xx, ww), create_graph=True)
+        return torch.autograd.grad(
+            (gx * vx.to(dtype)).sum() + (gw * vw.to(dtype)).sum(), (xx, ww))
+
+    before = dict(tg.LAUNCHES)
+    got = hvp(tg.gconv3x3)
+    torch.cuda.synchronize()
+    ran = {k for k in tg.LAUNCHES if tg.LAUNCHES[k] != before[k]}
+    assert ran == {"gconv3x3_fwd_narrow", "gconv3x3_wgrad_narrow"}
+    for a, b in zip(got, hvp(tg.gconv3x3_ref)):
+        _close(a, b.float(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,widest", [(torch.float32, 295),
+                                          (torch.bfloat16, 547)])
+def test_narrow_widest_width_and_one_past(card, dtype, widest):
+    """The widest image whose halo fits a block's shared memory runs on the
+    8-channel kernels; one pixel wider goes to the generic CUDA-core ones;
+    both match the plain version."""
+    for width, sfx in ((widest, "_narrow"), (widest + 1, "")):
+        x = torch.randn(2, 3, width, 16, device="cuda",
+                        generator=card).to(dtype)
+        w = (torch.randn(3, 3, 8, 16, device="cuda", generator=card)
+             / 8.5).to(dtype)
+        before = dict(tg.LAUNCHES)
+        _close(tg.gconv3x3_fwd(x, w, 2), tg.gconv3x3_ref(x.float(),
+                                                         w.float(), 2), dtype)
+        _close(tg.gconv3x3_wgrad(x, x, 2),
+               tg.gconv3x3_wgrad_ref(x.float(), x.float(), 2), dtype)
+        torch.cuda.synchronize()
+        assert tg.LAUNCHES == dict(
+            before, **{f"gconv3x3_fwd{sfx}": before[f"gconv3x3_fwd{sfx}"] + 1,
+                       f"gconv3x3_wgrad{sfx}":
+                           before[f"gconv3x3_wgrad{sfx}"] + 1})
 
 
 @pytest.mark.cuda
