@@ -93,6 +93,25 @@ each of which raises on failure:
    Launches exact in every run: NF-RegNet-B1's 16 sites on the 8-channel
    kernels in either dtype, no kernel for the towers without grouped
    convs, and the generic CUDA-core kernels on no path.
+10. The CLIP family, ConvNeXt, the space-to-depth stem and ZCA.  (c)
+   first: an NFNet-L0 outer step at phase 4's size with ``stem_s2d``
+   against the plain stem, same weights, in float64 (exact math: loss
+   1e-5 relative, each meta-gradient 1e-4 relative error norm) and in
+   float32 on the kernels (TF32 off; loss 1e-5, meta-gradients phase 4's
+   1e-2, the float32 step's own spread on the card being ~3e-4); then
+   the bf16 headline step with and without it, in 3 alternating pairs of
+   2 timed steps after a warm-up step each, medians and peaks printed,
+   each run's launches phase 3's exactly.  (a) CLIP ViT-B/32 at 224^2
+   with the CLIP text tower (base, random init from the seed, 77 tokens,
+   512-d caches) and (b) ConvNeXt-Tiny at 224^2 with BERT-base, each on
+   phase 9's 256 pairs through the buffer CLI (1 expert x 2 epochs,
+   float32; ``.pt`` = ``.npz`` at the tower's width, the ``.pt`` in the
+   JAX tree's order), the distill CLI on those buffers (2 headline outer
+   steps, one float32 eval student) and ``eval_distilled`` on the set it
+   distilled (one student).  (d) the distill CLI at ConvNet 32^2 with
+   ``--zca --save_pt True``, 2 outer steps: ``images_zca_0.pt`` against
+   the fitted ZCA's ``inverse_transform`` of ``distilled_0.npz``, 1e-5.
+   No grouped-conv kernel launches on (a), (b) and (d).
 
 Phase 2 also times the CUDA-core kernels and the TF32 kernels in float32
 (the dtype of phases 4-8's eval students) beside cuDNN's float32 call with
@@ -1277,11 +1296,10 @@ def zoo_distill_cfg(Config, encoder: str, size: int, **kw):
     mb=100, syn_steps=8, bf16, forward-HVP, the kernels) on 256 pairs, 2
     outer steps, one eval block of 1 float32 student at iteration 0, no
     artifacts."""
-    return distill_cli_cfg(Config, image_encoder=encoder, image_size=size,
-                           Iteration=1, eval_it=2, num_eval=1,
-                           parallel_eval=False, std=False, draw=False,
-                           ckpt_it=0, name=f"phase9_{encoder}",
-                           **{**ZOO_DATA, **kw})
+    base = dict(image_encoder=encoder, image_size=size, Iteration=1,
+                eval_it=2, num_eval=1, parallel_eval=False, std=False,
+                draw=False, ckpt_it=0, name=f"phase9_{encoder}", **ZOO_DATA)
+    return distill_cli_cfg(Config, **{**base, **kw})
 
 
 def zoo_expert_path(gc, Config, encoder: str, size: int, **kw):
@@ -1299,18 +1317,21 @@ def zoo_distill_path(gc, Config, encoder: str, size: int, **kw):
     """Phase 9 (a), distill half: ``cli/distill.main`` on the buffers that
     :func:`zoo_expert_path` left in the current directory; launch counters
     zeroed just before and read just after; each outer step timed on the
-    host clock between synchronizes.  Every ``Grand_Loss`` finite, the
-    student's nine metrics finite and in [0, 100], launches exact."""
+    host clock between synchronizes; set-up from the call to the first
+    step.  Every ``Grand_Loss`` finite, the student's nine metrics finite
+    and in [0, 100], launches exact.  -> the summary, and the distilled set
+    (image_syn, text_syn, syn_lr_img, syn_lr_txt) under ``"syn"``."""
     from multimodal_dataset_distillation_tpu_torch.cli import distill as cli
     from multimodal_dataset_distillation_tpu_torch.engine import distill as eng
 
     cfg = zoo_distill_cfg(Config, encoder, size, **kw)
-    step_s = []
+    step_s, step_t = [], []
     step = eng.Distiller.step_traj
 
     def timed(self, *a, **k):
         torch.cuda.synchronize()
         t = time.perf_counter()
+        step_t.append(t)
         out = step(self, *a, **k)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
@@ -1329,7 +1350,10 @@ def zoo_distill_path(gc, Config, encoder: str, size: int, **kw):
         wall = time.perf_counter() - t0
         launches = dict(gc.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        del distiller
+        st = distiller.state
+        syn = (*distiller.syn_arrays(), float(st.syn_lr_img),
+               float(st.syn_lr_txt))
+        del distiller, st
     finally:
         eng.Distiller.step_traj = step
     with open(os.path.join(cfg.save_dir, f"{cfg.name}.jsonl")) as f:
@@ -1353,6 +1377,7 @@ def zoo_distill_path(gc, Config, encoder: str, size: int, **kw):
         raise AssertionError(f"{encoder}: distill CLI launches {launches}, "
                              f"expected {want}")
     out = {"encoder": encoder, "image_size": size, "wall_s": wall,
+           "setup_s": step_t[0] - t0,
            "outer_step_s": step_s, "steps_per_s": 1.0 / step_s[-1],
            "max_memory_allocated_gib": peak, "launches": launches,
            "grand_loss": [losses[i] for i in range(steps)],
@@ -1361,6 +1386,7 @@ def zoo_distill_path(gc, Config, encoder: str, size: int, **kw):
           f"{', '.join(f'{t:.3f}' for t in step_s)} s "
           f"({out['steps_per_s']:.3f} steps/s after the first); peak "
           f"{peak:.2f} GiB; " + json.dumps(out), flush=True)
+    out["syn"] = syn
     return out
 
 
@@ -1467,6 +1493,7 @@ def zoo_path(gc, Config, syn, phase3_steps_per_s: float):
             out["towers"][encoder] = {
                 "buffer": zoo_expert_path(gc, Config, encoder, size),
                 "distill": zoo_distill_path(gc, Config, encoder, size)}
+            del out["towers"][encoder]["distill"]["syn"]
             torch.cuda.empty_cache()
         out["resnet50"] = zoo_batchnorm_path(gc, Config)
         torch.cuda.empty_cache()
@@ -1493,8 +1520,294 @@ def zoo_path(gc, Config, syn, phase3_steps_per_s: float):
     return rows, out
 
 
+# phase 10 (a)/(b): the last towers of the JAX zoo at 224^2, each with
+# its text tower, on phase 9's 256 pairs
+CLIP_ZOO = {"clip": dict(text_encoder="clip"),
+            "convnext": dict(text_encoder="bert")}
+S2D_PAIRS = 3        # (c): alternating pairs of timed runs
+S2D_STEPS = 2        # (c): outer steps per timed run
+
+
+def clip_zoo_path(gc, Config, encoder: str, size: int = 224, **kw):
+    """Phase 10 (a)/(b): ``encoder`` through the three CLIs in the current
+    directory: the buffer CLI (1 expert x 2 epochs, float32, 256 pairs),
+    the distill CLI on its buffers (2 headline outer steps, one float32
+    eval student), ``eval_distilled`` on the distilled set (one student,
+    the 256 x 5 test split, the caption cache of ``text_encoder`` computed
+    by its tower).  Launches 0: neither tower has a grouped 3x3 conv."""
+    kw = {**CLIP_ZOO[encoder], "text_encoder_config": "base",
+          "text_pretrained": False, **kw}
+    buf = zoo_expert_path(gc, Config, encoder, size, **kw)
+    torch.cuda.empty_cache()
+    dis = zoo_distill_path(gc, Config, encoder, size, **kw)
+    syn = dis.pop("syn")
+    torch.cuda.empty_cache()
+    ev = eval_path(gc, Config, syn, image_encoder=encoder, image_size=size,
+                   num_eval=1, parallel_eval=False, std=False,
+                   **{**ZOO_DATA, **kw})
+    zero = dict.fromkeys(KERNELS, 0)
+    for name, r in (("buffer", buf), ("distill", dis), ("eval", ev)):
+        if r["launches"] != zero:
+            raise AssertionError(f"{encoder} {name}: launches "
+                                 f"{r['launches']}")
+    width = (128 if kw["text_encoder_config"] == "tiny"
+             else {"clip": 512, "bert": 768}[kw["text_encoder"]])
+    if syn[1].shape[1] != width:
+        raise AssertionError(f"{encoder}: text width {syn[1].shape}")
+    epochs = buf["epoch_s"]
+    line = {"encoder": encoder, "image_size": size,
+            "text_encoder": kw["text_encoder"],
+            "expert_images_per_s": epochs[-1]["images_per_s"],
+            "expert_peak_gib": buf["max_memory_allocated_gib"],
+            "expert_wall_s": buf["wall_s"],
+            "distill_steps_per_s": dis["steps_per_s"],
+            "distill_outer_step_s": dis["outer_step_s"],
+            "distill_setup_s": dis["setup_s"],
+            "distill_peak_gib": dis["max_memory_allocated_gib"],
+            "grand_loss": dis["grand_loss"], "eval_wall_s": ev["wall_s"],
+            "eval_r_mean": [r["r_mean"] for r in ev["results"]],
+            "buffer_widths": buf["buffer_widths"]}
+    print(f"phase 10 {encoder} + {kw['text_encoder']} at {size}^2: expert "
+          f"{line['expert_images_per_s']:.1f} images/s (second epoch), peak "
+          f"{line['expert_peak_gib']:.2f} GiB; distill "
+          f"{line['distill_steps_per_s']:.3f} outer steps/s (second step), "
+          f"set-up {line['distill_setup_s']:.1f} s, peak "
+          f"{line['distill_peak_gib']:.2f} GiB; eval {ev['wall_s']:.1f} s; "
+          + json.dumps(line), flush=True)
+    return {"line": line, "launches": {"buffer": buf["launches"],
+                                       "distill": dis["launches"],
+                                       "eval": ev["launches"]}}
+
+
+# (c)'s tolerances on the meta-gradients' relative error norms, s2d stem
+# against the plain stem: the rewrite is exact math, so 1e-4 in float64;
+# a float32 step on the card differs from itself run again by ~3e-4 in
+# the pixels' meta-gradient (``plain_rerun`` below), so in float32 phase
+# 4's 1e-2
+S2D_GRAD_TOL = {"float64": 1e-4, "float32": 1e-2}
+
+
+def s2d_compare(gc, Config, mb: int = 25, syn_steps: int = 2):
+    """Phase 10 (c), first: one NFNet-L0 outer step at phase 4's size with
+    the space-to-depth stem against the same step with the plain stem,
+    from the same seed and weights, in float64 (``F.conv2d`` throughout:
+    the kernels take bf16 and float32) and in float32 (the kernels, TF32
+    off, launching phase 4's counts).  Loss 1e-5 relative, each
+    meta-gradient :data:`S2D_GRAD_TOL` relative error norm.  Also printed:
+    the float32 plain step against itself run again, and against the
+    float64 plain step (the float32 step's own spread and error)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = (("float64", False), ("float64", True), ("float32", False),
+            ("float32", False), ("float32", True))
+    res, launches = {}, {}
+    for dtype, on in runs:
+        c = main_cfg(Config, syn_steps=syn_steps, mini_batch_size=mb,
+                     inner_dtype=dtype, stem_s2d=on,
+                     pallas_gconv=dtype == "float32")
+        d, traj_img, traj_txt, rng = make_distiller(c)
+        if d.model.image_encoder.model.stem.s2d is not on:
+            raise AssertionError(f"stem_s2d={on} built the other stem")
+        st0 = d.state
+        gc.reset_launches()
+        m = d.step_traj(traj_img, traj_txt, 0, d.sample_indices(rng))
+        torch.cuda.synchronize()
+        launches[(dtype, on)] = dict(gc.LAUNCHES)
+        st = d.state
+        key = (dtype, on, "rerun" if (dtype, on) in res else "")
+        res[key[:2] if not key[2] else key] = {
+            "loss": float(m["grand_loss"]),
+            "pixels": ((st0.image_syn - st.image_syn) / c.lr_img).double(),
+            "texts": ((st0.text_syn - st.text_syn) / c.lr_txt).double(),
+            "lr_img": m["syn_lr_img_grad"].double(),
+            "lr_txt": m["syn_lr_txt_grad"].double()}
+        del d, traj_img, traj_txt, st0, st, m
+        torch.cuda.empty_cache()
+
+    def errors(a, b):
+        r = {"loss_a": a["loss"], "loss_b": b["loss"],
+             "loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"])}
+        for k in ("pixels", "texts", "lr_img", "lr_txt"):
+            r[f"{k}_grad_rel_err"] = float((a[k] - b[k]).norm()
+                                           / b[k].norm())
+        return r
+
+    out = {}
+    for dtype, tol in S2D_GRAD_TOL.items():
+        a, b = res[(dtype, True)], res[(dtype, False)]
+        r = {**errors(a, b), "grad_tol": tol}
+        out[dtype] = r
+        print(f"phase 10 s2d {dtype} step vs the plain stem (mb={mb}, "
+              f"syn_steps={syn_steps}): " + json.dumps(r), flush=True)
+        if not (r["loss_rel_err"] <= 1e-5 and all(
+                b[k].norm() > 0 and r[f"{k}_grad_rel_err"] <= tol
+                for k in ("pixels", "texts", "lr_img", "lr_txt"))):
+            raise AssertionError(f"the s2d stem's {dtype} step differs: {r}")
+    out["plain_rerun"] = errors(res[("float32", False, "rerun")],
+                                res[("float32", False)])
+    out["float32_vs_float64"] = errors(res[("float32", False)],
+                                       res[("float64", False)])
+    print("phase 10 float32 plain step vs itself run again: "
+          + json.dumps(out["plain_rerun"]) + "; vs the float64 step: "
+          + json.dumps(out["float32_vs_float64"]), flush=True)
+    zero = dict.fromkeys(KERNELS, 0)
+    want = site_launches("nfnet", "float32", 8 * syn_steps, 4 * syn_steps)
+    for (dtype, on), n in launches.items():
+        if n != (want if dtype == "float32" else zero):
+            raise AssertionError(f"s2d={on} {dtype} step launches {n}")
+    out["launches"] = launches[("float32", True)]
+    return out
+
+
+def s2d_ab(gc, Config, pairs: int = S2D_PAIRS, steps: int = S2D_STEPS):
+    """Phase 10 (c), then: the bf16 headline step (phase 3's) with the plain
+    and the space-to-depth stem, one warm-up step each, then ``pairs``
+    alternating pairs of ``steps`` timed outer steps (plain first in even
+    pairs, s2d first in odd ones) in this one call; host clock between
+    synchronizes.  Launch counters zeroed before and read after each timed
+    run: phase 3's per step exactly.  -> medians, peaks, per-step times."""
+    torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for on in (False, True):
+        d, traj_img, traj_txt, rng = make_distiller(
+            main_cfg(Config, stem_s2d=on))
+        if d.model.image_encoder.model.stem.s2d is not on:
+            raise AssertionError(f"stem_s2d={on} built the other stem")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(d.step_traj(traj_img, traj_txt, 0,
+                                 d.sample_indices(rng))["grand_loss"])
+        torch.cuda.synchronize()
+        runs[on] = {"d": d, "traj": (traj_img, traj_txt), "rng": rng,
+                    "step_s": [], "losses": [loss],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    want = {k: MAIN_PATH_PER_STEP.get(k, 0) * steps for k in KERNELS}
+    for i in range(pairs):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            r = runs[on]
+            gc.reset_launches()
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                m = r["d"].step_traj(*r["traj"], 0,
+                                     r["d"].sample_indices(r["rng"]))
+                r["losses"].append(float(m["grand_loss"]))
+                torch.cuda.synchronize()
+                r["step_s"].append(time.perf_counter() - t)
+            if dict(gc.LAUNCHES) != want:
+                raise AssertionError(f"s2d={on}: launches {gc.LAUNCHES}, "
+                                     f"expected phase 3's {want}")
+    out = {"pairs": pairs, "steps_per_run": steps, "launches_per_run": want}
+    for on, r in runs.items():
+        tag = "s2d" if on else "plain"
+        if not all(math.isfinite(v) for v in r["losses"]):
+            raise AssertionError(f"{tag}: grand_loss {r['losses']}")
+        out[tag] = {"median_step_s": float(np.median(r["step_s"])),
+                    "step_s": r["step_s"], "peak_gib": r["peak_gib"],
+                    "grand_loss": r["losses"]}
+    del runs
+    torch.cuda.empty_cache()
+    out["s2d_over_plain"] = (out["s2d"]["median_step_s"]
+                             / out["plain"]["median_step_s"])
+    print(f"phase 10 s2d A/B (bf16 headline step, {pairs} pairs x {steps} "
+          f"steps): plain median {out['plain']['median_step_s']:.4f} s, peak "
+          f"{out['plain']['peak_gib']:.2f} GiB; s2d median "
+          f"{out['s2d']['median_step_s']:.4f} s, peak "
+          f"{out['s2d']['peak_gib']:.2f} GiB; s2d/plain "
+          f"{out['s2d_over_plain']:.4f}; " + json.dumps(out), flush=True)
+    return out
+
+
+def zca_path(gc, Config, size: int = 32):
+    """Phase 10 (d): the distill CLI at ConvNet 32^2 with ``--zca
+    --save_pt True`` (phase 9's configuration, dummy buffers from the
+    student's init, 2 outer steps, the eval block's artifacts at 0):
+    ``images_zca_0.pt`` read back against the fitted ZCA's
+    ``inverse_transform`` of the saved ``distilled_0.npz`` pixels, 1e-5;
+    launches 0."""
+    from multimodal_dataset_distillation_tpu_torch.cli import distill as cli
+
+    fitted = []
+    zca_cls = cli.ZCAWhitening
+
+    class Keep(zca_cls):
+        def fit(self, images):
+            fitted.append(self)
+            t = time.perf_counter()
+            out = super().fit(images)
+            self.fit_s = time.perf_counter() - t
+            return out
+
+    cli.ZCAWhitening = Keep
+    try:
+        dis = zoo_distill_path(gc, Config, "convnet", size, zca=True,
+                               save_pt=True, draw=True, name="phase10_zca",
+                               buffer_path="buffers_zca")
+    finally:
+        cli.ZCAWhitening = zca_cls
+    dis.pop("syn")
+    cfg = zoo_distill_cfg(Config, "convnet", size, name="phase10_zca")
+    run = os.path.join(cfg.save_dir, cfg.dataset, cfg.name)
+    with np.load(os.path.join(run, "distilled_0.npz")) as z:
+        image_syn = z["image_syn"]
+    got = torch.load(os.path.join(run, "images_zca_0.pt"),
+                     weights_only=True).numpy()
+    (zca,) = fitted
+    want = zca.inverse_transform(image_syn).transpose(0, 3, 1, 2)
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    if not (got.shape == want.shape and err <= 1e-5):
+        raise AssertionError(f"images_zca_0.pt: {got.shape}, rel err {err}")
+    for name in ("zca_synthetic_images_0.png",
+                 "clipped_zca_synthetic_images_0_std_2.5.png"):
+        if not os.path.exists(os.path.join(run, name)):
+            raise AssertionError(f"{name} missing")
+    if dis["launches"] != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"zca: launches {dis['launches']}")
+    line = {"encoder": "convnet", "image_size": size,
+            "zca_features": int(zca.whiten.shape[0]), "zca_fit_s": zca.fit_s,
+            "images_zca_rel_err": err,
+            "distill_steps_per_s": dis["steps_per_s"],
+            "distill_setup_s": dis["setup_s"],
+            "distill_peak_gib": dis["max_memory_allocated_gib"],
+            "grand_loss": dis["grand_loss"]}
+    print(f"phase 10 zca (ConvNet {size}^2): fit {zca.fit_s:.1f} s on the "
+          f"host, images_zca_0.pt rel err {err:.2e}; distill "
+          f"{dis['steps_per_s']:.3f} outer steps/s, set-up "
+          f"{dis['setup_s']:.1f} s, peak "
+          f"{dis['max_memory_allocated_gib']:.2f} GiB; " + json.dumps(line),
+          flush=True)
+    return {"line": line, "launches": {"distill": dis["launches"]}}
+
+
+def phase10(gc, Config):
+    """Phase 10: (c) first (the card's memory clean), then (a) and (b) in
+    one working directory each, (d) beside (b), whose caption caches it
+    reads.  -> the phase's summary and its launch counts per run."""
+    out = {"s2d_step": s2d_compare(gc, Config)}
+    torch.cuda.empty_cache()
+    out["s2d_ab"] = s2d_ab(gc, Config)
+    launches = {"s2d_f32": out["s2d_step"]["launches"],
+                "s2d_ab_run": out["s2d_ab"]["launches_per_run"]}
+    for encoder in CLIP_ZOO:
+        with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+            r = clip_zoo_path(gc, Config, encoder)
+            if encoder == "convnext":
+                torch.cuda.empty_cache()
+                z = zca_path(gc, Config)
+                out["zca"] = z["line"]
+                launches["zca_distill"] = z["launches"]["distill"]
+        torch.cuda.empty_cache()
+        out[encoder] = r["line"]
+        for k, n in r["launches"].items():
+            launches[f"{encoder}_{k}"] = n
+    print(f"card: {card_line()}", flush=True)
+    print("phase 10: " + json.dumps(out), flush=True)
+    return out, launches
+
+
 def kernel_entries(rows, launches, launches_eval, launches_expert,
-                   launches_cli, regnet_rows, launches_zoo):
+                   launches_cli, regnet_rows, launches_zoo, launches_p10):
     """One entry per kernel, summed over one tower pass (mb=100), in the
     dtype of the paths that launch it.  The tensor-core kernels at NFNet-L0's
     19 sites: bf16 for the bf16 ones, float32 for the TF32 ones (phases 4-8;
@@ -1511,7 +1824,8 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
     NF-RegNet-B1 distill CLI run; ``launches_eval``: phase 5's (the eval
     path); ``launches_expert``:
     phase 7's per run of the buffer CLI; ``launches_cli``: phase 8's (the
-    distill CLI, all routes); ``launches_zoo``: phase 9's per run.  Each
+    distill CLI, all routes); ``launches_zoo``: phase 9's per run;
+    ``launches_phase10``: phase 10's per run (the s2d A/B per timed run).  Each
     entry, and its ``nfnet_shapes``, names the tower whose shapes its
     numbers were taken at (``tower``)."""
     def measures(name, kind, route, sfx, rs):
@@ -1580,7 +1894,9 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
                                 for run, n in launches_expert.items()},
             "launches_cli": launches_cli[name],
             "launches_zoo": {run: n[name]
-                             for run, n in launches_zoo.items()}})
+                             for run, n in launches_zoo.items()},
+            "launches_phase10": {run: n[name]
+                                 for run, n in launches_p10.items()}})
         entries.append(entry)
     return entries
 
@@ -1648,6 +1964,8 @@ def main() -> int:
             cli = distill_cli_path(gc, Config, path["steps_per_s"])
     torch.cuda.empty_cache()
     regnet_rows, zoo = zoo_path(gc, Config, syn, path["steps_per_s"])
+    torch.cuda.empty_cache()
+    _, launches_p10 = phase10(gc, Config)
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
@@ -1662,7 +1980,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_entries(
         rows, launches, ev["launches"],
         {run: e["launches"] for run, e in experts.items()},
-        cli["launches"], regnet_rows, launches_zoo)}), flush=True)
+        cli["launches"], regnet_rows, launches_zoo, launches_p10)}),
+        flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

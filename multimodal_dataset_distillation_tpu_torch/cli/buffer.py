@@ -22,11 +22,12 @@ card there it raises.  Three modes:
 The last two have no in-step augment: ``--device_augment`` with either is
 refused before any data is read (the JAX CLI trains them on raw crops).
 
-The frozen BERT runs once up front into the caption caches in the current
-directory.  One card: ``--distributed``, ``--mesh_shape`` and more than
-one visible card are refused at start-up (ROADMAP A, item 18), with every
-other flag whose module is not ported (:func:`~.distill.check_supported`),
-before any data is read.
+The frozen text tower (BERT, or CLIP under ``--text_encoder=clip``) runs
+once up front into the caption caches in the current directory;
+``--stem_s2d`` (or ``MDD_STEM_S2D``) runs the NF stems in space-to-depth
+form.  One card: ``--distributed``, ``--mesh_shape`` and more than one
+visible card are refused at start-up (ROADMAP A, item 18,
+:func:`~.distill.check_supported`), before any data is read.
 
 Usage::
 

@@ -19,12 +19,16 @@ raises.  Flow (distill_original.py:89-496):
    after the next step is queued; a checkpoint every ``ckpt_it``
    iterations, and --resume_from.
 
-One card only.  Flags whose modules are not ported yet raise
+One card only.  ``--mesh_shape`` and more than one visible card raise
 ``NotImplementedError`` at start-up, before any data is read
 (:func:`check_supported`); so do, with ``ValueError``, the students the
 JAX distill CLI cannot run either (:func:`~..engine.distill.
 check_distillable`).  ``--transfer`` gives the eval students the transfer
-head and leaves the distill students plain, as there.
+head and leaves the distill students plain, as there.  ``--zca`` fits ZCA
+whitening on the host (at most 2048 train images), whitens the real-init
+pixels and adds the de-whitened artifacts; ``--stem_s2d`` (or
+``MDD_STEM_S2D``) runs the NF stems of the distill and the eval students
+in space-to-depth form, as the JAX package's global gate does.
 
 Usage::
 
@@ -67,11 +71,8 @@ from ..engine.distill import (
 )
 from ..engine.eval import evaluate_synset, evaluate_synset_parallel
 from ..models.clip_model import VLBiEncoder, build_bi_encoder, init_bi_encoder
-from ..models.zoo import (
-    UNPORTED,
-    load_timm_image_tower,
-    load_timm_state_dict,
-)
+from ..models.zoo import load_timm_image_tower, load_timm_state_dict
+from ..ops.zca import ZCAWhitening
 from ..utils.logging import Profiler, RunLogger, get_time
 from ..utils.visualize import save_visualizations
 from .buffer import make_caption_lookup
@@ -101,20 +102,11 @@ def make_eval_initializer(cfg: Config
 
 
 def check_supported(cfg: Config, ignore: Sequence[str] = ()) -> None:
-    """Raise ``NotImplementedError`` for a flag whose module is not ported
-    yet (naming its ROADMAP item), and ``RuntimeError`` when the device
-    asked for is a card and none is there.  ``ignore``: flags the calling
+    """Raise ``NotImplementedError`` for ``--mesh_shape`` and more than one
+    visible card (multi-card is not ported yet: ROADMAP A, item 18), and
+    ``RuntimeError`` when the device asked for is a card and none is there.  ``ignore``: flags the calling
     entry point never reads (as its JAX counterpart does not), skipped."""
-    queued = [
-        (cfg.zca, "--zca", "ops/zca.py", 17),
-        (bool(cfg.mesh_shape), "--mesh_shape", "parallel/mesh.py", 18),
-        (cfg.text_encoder == "clip", "--text_encoder=clip",
-         "models/clip_text.py", 16),
-        (cfg.stem_s2d, "--stem_s2d", "ops/s2d.py", 17),
-        (cfg.image_encoder in UNPORTED,
-         f"--image_encoder={cfg.image_encoder}",
-         "models/clip_vision.py / models/convnext.py", 16),
-    ]
+    queued = [(bool(cfg.mesh_shape), "--mesh_shape", "parallel/mesh.py", 18)]
     device = torch.device(cfg.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -191,6 +183,14 @@ def main(cfg: Config):
 
     rng = np.random.RandomState(cfg.seed)
 
+    # ---- ZCA whitening (the CIFAR path, utils.py:50-105), on the host ----
+    zca = None
+    if cfg.zca:
+        sample_n = min(len(train_dataset), 2048)
+        zca = ZCAWhitening().fit(np.stack([train_dataset[i][0]
+                                           for i in range(sample_n)]))
+        print(f"Fitted ZCA whitening on {sample_n} train images")
+
     # ---- synthetic data init (distill_original.py:137-148) ----
     image_syn, text_syn = get_images_texts(cfg.num_queries, train_dataset,
                                            text_encoder, rng)
@@ -200,6 +200,10 @@ def main(cfg: Config):
     if cfg.txt_init == "noise":
         text_syn = noise_texts(cfg.num_queries, text_encoder.hidden_size, rng)
         print("Initialized synthetic text from random noise")
+    if zca is not None and cfg.pix_init == "real":
+        # the reference's --zca path serves whitened images from
+        # get_dataset (utils.py:50-105): whiten the real-init pixels here
+        image_syn = zca.transform(image_syn)
     del text_encoder  # the caches hold all the run needs of the tower
 
     # ---- student template + distiller ----
@@ -323,7 +327,7 @@ def main(cfg: Config):
                     train_caption_embed,
                     save_grids=cfg.ipc < 50 or cfg.force_save,
                     syn_lrs=(st.syn_lr_img, st.syn_lr_txt),
-                    save_pt=cfg.save_pt)
+                    save_pt=cfg.save_pt, zca=zca)
                 for k in ("grid", "clipped_2.5"):
                     if k in arts:
                         logger.log_image(f"Synthetic_Images/{k}", arts[k],

@@ -35,8 +35,10 @@ from .distill import check_supported, make_eval_initializer
 
 #: flags that the JAX eval_distilled never reads (the ZCA, the mesh and the
 #: space-to-depth stem are the distill and buffer CLIs' only), so this entry
-#: point ignores them too
-EVAL_IGNORES = ("--zca", "--mesh_shape", "--stem_s2d")
+#: point ignores them too: ``check_supported`` skips the mesh, ``main``
+#: never reads ``zca`` and builds its students with ``stem_s2d`` off
+#: (``MDD_STEM_S2D`` still applies, as it does to the JAX package's gate)
+EVAL_IGNORES = ("--mesh_shape",)
 
 
 def load_distilled(path: str):
@@ -83,6 +85,7 @@ def main(cfg: Config, argv: Optional[Sequence[str]] = None) -> List[dict]:
     not ported yet, or a card asked for and missing, raises before any
     data is read (:func:`check_supported`)."""
     check_supported(cfg, ignore=EVAL_IGNORES)
+    cfg = cfg.replace(stem_s2d=False)
     if not cfg.distilled_npz:
         raise SystemExit("--distilled_npz=<path to distilled_{it}.npz or "
                          "images_{it}.pt> is required")

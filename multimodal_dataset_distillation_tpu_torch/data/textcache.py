@@ -6,19 +6,20 @@ textcache.py`` (reference ``data/__init__.py:153-191`` +
 captions live in ``{dataset}_{text_encoder}_text_embed.npz`` (train
 captions: ``..._train_text_embed.npz``) under key ``bert_test_embed``, in
 the current directory; computed if missing, then loaded.  The file names
-and key are the JAX package's, so a cache written by either package is
-read by the other.
+(``flickr_clip_text_embed.npz`` for the CLIP tower) and key are the JAX
+package's, so a cache written by either package is read by the other.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 
 from ..config import Config
 from ..models.bert import TextEncoder
+from ..models.clip_text import ClipTextEncoder
 
 
 def cache_name(cfg: Config, file_type: str, cache_dir: str = ".") -> str:
@@ -28,16 +29,15 @@ def cache_name(cfg: Config, file_type: str, cache_dir: str = ".") -> str:
                         f"{cfg.dataset}_{cfg.text_encoder}_{suffix}.npz")
 
 
-def make_text_encoder(cfg: Config) -> TextEncoder:
-    """The frozen BERT tower on ``cfg.device`` (networks.py:693-737)."""
+def make_text_encoder(cfg: Config) -> Union[TextEncoder, ClipTextEncoder]:
+    """The frozen text tower on ``cfg.device`` (networks.py:693-737): BERT
+    or CLIP, base or tiny."""
+    kw = dict(variant=cfg.text_encoder_config, pretrained=cfg.text_pretrained,
+              seed=cfg.seed, device=cfg.device)
     if cfg.text_encoder == "bert":
-        return TextEncoder(variant=cfg.text_encoder_config,
-                           pretrained=cfg.text_pretrained, seed=cfg.seed,
-                           device=cfg.device)
+        return TextEncoder(**kw)
     if cfg.text_encoder == "clip":
-        raise NotImplementedError(
-            "--text_encoder=clip: the CLIP text tower (models/clip_text.py) "
-            "is not ported yet (ROADMAP A, item 16)")
+        return ClipTextEncoder(**kw)
     raise NotImplementedError(f"Unsupported text encoder: {cfg.text_encoder}")
 
 

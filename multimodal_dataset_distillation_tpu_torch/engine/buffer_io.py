@@ -13,17 +13,19 @@ list of snapshots.  Two formats:
   per-parameter tensors in ``module.parameters()`` order and torch
   layouts: this package's flat order, so snapshots concatenate as stored.
   The JAX package writes a tree it has no reference order for (a BERT
-  tower's, ``--text_trainable``) as the JAX tree's leaves instead, in its
-  ravel order and flax shapes.  A snapshot's shape signature is checked
-  against both orders of the module, so a file in another order is
-  refused instead of read permuted.
+  tower's, ``--text_trainable``; the CLIP ViT-B/32 and ConvNeXt image
+  towers, JAX ``models/torch_order.py:421-430``) as the JAX tree's leaves
+  instead, in its ravel order and flax shapes.  A snapshot's shape
+  signature is checked against both orders of the module (the JAX order
+  first for those towers), so a file in another order is refused instead
+  of read permuted.
 
 Writing keeps each format's order, so the JAX ``load_buffer`` reads what
 this module writes: ``.npz`` in JAX ravel order (:func:`~..models.convert.
 flat_to_jax`), ``.pt`` in registration order for the image tower and the
 projection head (the reference order the JAX package's codec identifies)
-and as the JAX tree's leaves for BERT, as the JAX ``save_expert`` writes
-them.
+and as the JAX tree's leaves for the towers without one, as the JAX
+``save_expert`` writes them.
 """
 
 from __future__ import annotations
@@ -36,7 +38,19 @@ import torch
 from torch import nn
 
 from ..models.bert import BertEncoder
+from ..models.clip_vision import ClipVisionTransformer
 from ..models.convert import flat_from_jax, flat_to_jax, jax_leaves, jax_shapes
+from ..models.convnext import ConvNeXt
+
+#: towers the JAX package has no reference (torch) order for
+_NO_REFERENCE_ORDER = (BertEncoder, ClipVisionTransformer, ConvNeXt)
+
+
+def has_reference_order(template: nn.Module) -> bool:
+    """False for a tower whose ``.pt`` snapshots the JAX package writes as
+    its own tree's leaves (BERT, CLIP ViT-B/32, ConvNeXt)."""
+    return not isinstance(getattr(template, "model", template),
+                          _NO_REFERENCE_ORDER)
 
 
 def flatten_snapshot(snapshot: Sequence) -> np.ndarray:
@@ -92,7 +106,7 @@ def save_expert(save_dir: str, img_trajectory: Sequence[Sequence],
         stem = os.path.join(save_dir, f"{kind}_replay_buffer_{n}")
         if write_pt:
             pt = traj
-            if isinstance(template, BertEncoder):   # no reference order
+            if not has_reference_order(template):
                 pt = [jax_leaves(flat_to_jax(flatten_snapshot(s), template),
                                  template) for s in traj]
             save_trajectories_pt(stem + ".pt", [pt])
@@ -110,9 +124,11 @@ def load_trajectory_npz(path: str) -> np.ndarray:
 def load_trajectories_pt(path: str, template: nn.Module) -> List[np.ndarray]:
     """Load a ``.pt`` buffer -> list of stacked flat trajectories (E+1, P)
     in ``template``'s order, from snapshots in registration order or in the
-    JAX tree's leaf order."""
+    JAX tree's leaf order (tried first for a tower without a reference
+    order, should the two signatures coincide)."""
     want = [tuple(p.shape) for p in template.parameters()]
     native = jax_shapes(template)
+    jax_first = not has_reference_order(template)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     out = []
     for ti, traj in enumerate(payload):
@@ -127,7 +143,8 @@ def load_trajectories_pt(path: str, template: nn.Module) -> List[np.ndarray]:
                     f"{want[:4]}... or {native[:4]}...)")
             snaps.append(torch.cat([t.reshape(-1).float() for t in snap]))
         flat = torch.stack(snaps).numpy()
-        out.append(flat if shapes == want else flat_from_jax(flat, template))
+        as_jax = shapes == native and (jax_first or shapes != want)
+        out.append(flat_from_jax(flat, template) if as_jax else flat)
     return out
 
 

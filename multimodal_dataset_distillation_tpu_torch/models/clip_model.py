@@ -15,22 +15,22 @@ with BERT inside the step.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import Config
+from ..ops import s2d
 from ..ops.contrastive import FIXED_LOGIT_SCALE, contrastive_loss_and_acc
 from .bert import BERT_BASE, BERT_TINY, BertConfig, BertEncoder
-from .layers import BatchNorm, WSConv
+from .clip_text import CLIP_TEXT_TINY
+from .clip_vision import ClipVisionTransformer
+from .convnext import ConvNeXtBlock
+from .layers import BatchNorm, WSConv, trunc_normal_fan_in
 from .projection import ProjectionHead
 from .vit import VisionTransformer
 from .zoo import ImageTower, feature_dim
-
-# text widths of the offline tiny encoders (BERT_TINY, CLIP_TEXT_TINY)
-_TINY_TEXT_DIM = 128
 
 
 class VLBiEncoder(nn.Module):
@@ -38,12 +38,13 @@ class VLBiEncoder(nn.Module):
                  text_embedding: int = 768, image_embedding: int = 2304,
                  proj_dropout: float = 0.1, gconv: bool = False,
                  only_image_projection: bool = False, transfer: bool = False,
-                 image_size: int = 224):
+                 image_size: int = 224, stem_s2d: bool = False):
         super().__init__()
         self.text_embedding = text_embedding
         self.image_encoder = ImageTower(image_encoder_name, gconv=gconv,
                                         transfer=transfer,
-                                        image_size=image_size)
+                                        image_size=image_size,
+                                        stem_s2d=stem_s2d)
         self.text_projection = ProjectionHead(text_embedding, image_embedding,
                                               dropout=proj_dropout)
         self.image_projection = (ProjectionHead(image_embedding,
@@ -81,9 +82,11 @@ class VLBiEncoderTrainableText(VLBiEncoder):
 
     def __init__(self, image_encoder_name: str = "nfnet",
                  image_embedding: int = 2304, bert: BertConfig = BERT_BASE,
-                 gconv: bool = False, image_size: int = 224):
+                 gconv: bool = False, image_size: int = 224,
+                 stem_s2d: bool = False):
         super().__init__(image_encoder_name, bert.hidden_size,
-                         image_embedding, gconv=gconv, image_size=image_size)
+                         image_embedding, gconv=gconv, image_size=image_size,
+                         stem_s2d=stem_s2d)
         self.text_encoder = BertEncoder(bert)
 
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor,
@@ -100,17 +103,22 @@ def build_bi_encoder(cfg: Config, device=None) -> VLBiEncoder:
     """Build from a :class:`Config` like the JAX ``build_bi_encoder``, on
     ``device`` (default ``cfg.device``, the card unless the config says
     otherwise); the grouped 3x3 convs take the kernels when
-    ``cfg.pallas_gconv`` is set.  An unported tower raises
-    ``NotImplementedError`` naming its ROADMAP item."""
-    text_dim = (_TINY_TEXT_DIM if cfg.text_encoder_config == "tiny"
-                else cfg.text_embedding)
+    ``cfg.pallas_gconv`` is set, and the NF stems run in space-to-depth
+    form when ``cfg.stem_s2d`` is (``MDD_STEM_S2D`` wins when set).  The
+    text width is the configured text encoder's (768 BERT-base, 512
+    CLIP-base; 128 for either tiny tower)."""
+    text_dim = cfg.text_embedding
+    if cfg.text_encoder_config == "tiny":
+        text_dim = (BERT_TINY.hidden_size if cfg.text_encoder == "bert"
+                    else CLIP_TEXT_TINY.embed_dim)
     model = VLBiEncoder(image_encoder_name=cfg.image_encoder,
                         text_embedding=text_dim,
                         image_embedding=feature_dim(cfg.image_encoder,
                                                     cfg.transfer),
                         gconv=cfg.pallas_gconv,
                         only_image_projection=cfg.only_has_image_projection,
-                        transfer=cfg.transfer, image_size=cfg.image_size)
+                        transfer=cfg.transfer, image_size=cfg.image_size,
+                        stem_s2d=s2d.configure(cfg))
     return model.to(cfg.device if device is None else device)
 
 
@@ -121,15 +129,9 @@ def build_trainable_text(cfg: Config, device=None) -> VLBiEncoderTrainableText:
     model = VLBiEncoderTrainableText(
         cfg.image_encoder, feature_dim(cfg.image_encoder),
         BERT_TINY if cfg.text_encoder_config == "tiny" else BERT_BASE,
-        gconv=cfg.pallas_gconv, image_size=cfg.image_size)
+        gconv=cfg.pallas_gconv, image_size=cfg.image_size,
+        stem_s2d=s2d.configure(cfg))
     return model.to(cfg.device if device is None else device)
-
-
-def _trunc_normal(t: torch.Tensor, fan_in: int, scale: float,
-                  gen: torch.Generator) -> None:
-    # flax variance_scaling(scale, "fan_in", "truncated_normal")
-    std = math.sqrt(scale / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
 
 
 @torch.no_grad()
@@ -138,18 +140,21 @@ def init_bi_encoder(model: VLBiEncoder, seed: int = 0) -> VLBiEncoder:
     initializers: he-normal WS kernels, unit gains, zero biases, zero
     skipinit gains, lecun-normal conv and dense kernels, unit norm scales,
     BatchNorm running averages 0 / 1, ViT's ``cls_token`` zeros and
-    ``pos_embed`` normal(0.02)."""
+    ``pos_embed`` normal(0.02), CLIP's ``class_embedding`` and
+    ``positional_embedding`` normal(0.02) and ``proj`` normal(0.01),
+    ConvNeXt's layer scales 1e-6 (its depthwise kernels lecun-normal on
+    their fan-in of 49, as every conv)."""
     gen = torch.Generator().manual_seed(seed)
     for mod in model.modules():
         if isinstance(mod, WSConv):
             w = torch.empty(mod.weight.shape)
-            _trunc_normal(w, mod.weight[0].numel(), 2.0, gen)
+            trunc_normal_fan_in(w, mod.weight[0].numel(), 2.0, gen)
             mod.weight.copy_(w)
             mod.gain.fill_(1.0)
             mod.bias.zero_()
         elif isinstance(mod, (nn.Linear, nn.Conv2d)):
             w = torch.empty(mod.weight.shape)
-            _trunc_normal(w, mod.weight[0].numel(), 1.0, gen)
+            trunc_normal_fan_in(w, mod.weight[0].numel(), 1.0, gen)
             mod.weight.copy_(w)
             if mod.bias is not None:
                 mod.bias.zero_()
@@ -163,6 +168,13 @@ def init_bi_encoder(model: VLBiEncoder, seed: int = 0) -> VLBiEncoder:
             mod.cls_token.zero_()
             mod.pos_embed.copy_(0.02 * torch.randn(mod.pos_embed.shape,
                                                    generator=gen))
+        elif isinstance(mod, ClipVisionTransformer):
+            for p, std in ((mod.class_embedding, 0.02),
+                           (mod.positional_embedding, 0.02),
+                           (mod.proj, 0.01)):
+                p.copy_(std * torch.randn(p.shape, generator=gen))
+        elif isinstance(mod, ConvNeXtBlock):
+            mod.gamma.fill_(1e-6)
     for name, p in model.named_parameters():
         if name.endswith("skipinit_gain"):
             p.zero_()

@@ -5,16 +5,23 @@ raveled, conv kernels HWIO, Dense kernels (in, out), gains (out,), SE as
 Dense); this package keeps timm names in registration order and torch
 layouts (OIHW, (out, in), gains (out, 1, 1, 1), SE as 1x1 convs).  This
 module maps one to the other, for every network of :mod:`.zoo` and the
-:class:`~.zoo.ImageTower` around it, :class:`~.projection.ProjectionHead`
-and :class:`~.bert.BertEncoder` (the port's own copy of the mappings in
-``models/import_torch.py`` and ``models/torch_order.py`` there; the BERT
-names are those of ``models/bert.py`` there).
+:class:`~.zoo.ImageTower` around it (CLIP ViT-B/32 and ConvNeXt-Tiny
+included), :class:`~.projection.ProjectionHead`, the frozen
+:class:`~.clip_text.ClipTextTransformer`, :class:`~.modified_resnet.
+ModifiedResNet` and :class:`~.bert.BertEncoder` (the port's own copy of the
+mappings in ``models/import_torch.py`` and ``models/torch_order.py`` there;
+the BERT names are those of ``models/bert.py`` there).  Flax Dense kernels
+(in, out) become Linear weights (out, in), conv kernels HWIO become OIHW,
+norm ``scale`` becomes ``weight``; a module's direct parameters (CLIP's
+``class_embedding``, ``positional_embedding``, ``proj`` and
+``text_projection``, ConvNeXt's ``gamma``) keep the flax layout.
 
 A module's flax path follows its port name, renamed where a module says
 so: a module's ``jax_names`` maps a child's (dotted) name to the flax
 module name it stands for (``ImageTower``'s ``model`` -> the flax
 auto-name ``NormFreeNet_0`` / ``ConvNet_0`` / ``ResNet_0`` /
-``VisionTransformer_0``, timm's ``stages.0.1`` -> ``stage0_block1``, a
+``VisionTransformer_0`` / ``ClipVisionTransformer_0`` / ``ConvNeXt_0``,
+timm's ``stages.0.1`` -> ``stage0_block1``, a
 ResNet block's ``downsample.1`` -> ``shortcut_bn``, ...).  Leaves: conv
 and dense kernels ``kernel``, norm weights ``scale``; BatchNorm's running
 averages are the ``batch_stats`` collection's ``mean`` / ``var``.

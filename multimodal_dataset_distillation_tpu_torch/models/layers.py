@@ -10,12 +10,14 @@ an explicit ``torch.Generator`` passed to ``forward``.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import s2d as _s2d
 from ..ops.gconv import gconv3x3
 
 # Expected gain of x -> act(x) under x ~ N(0, 1) (Brock et al. 2021).
@@ -46,6 +48,14 @@ ACTIVATIONS: Dict[str, Callable] = {
     "tanh": torch.tanh,
     "identity": lambda x: x,
 }
+
+
+def trunc_normal_fan_in(t: torch.Tensor, fan_in: int, scale: float,
+                        gen: torch.Generator) -> None:
+    """flax ``variance_scaling(scale, "fan_in", "truncated_normal")`` into
+    ``t`` from ``gen`` (scale 1: lecun-normal, 2: he-normal)."""
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
 
 
 def gamma_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -166,6 +176,13 @@ class WSConv(nn.Module):
     (:func:`~..ops.gconv.gconv3x3`), as the JAX WSConv routes it to the
     Pallas primitive under ``pallas_gconv``; every other conv is
     ``F.conv2d``.
+
+    ``forward(x, s2d_in, s2d_out)`` with ``s2d_in > 1`` is the
+    space-to-depth form (:mod:`..ops.s2d`, the JAX WSConv's ``s2d_in`` /
+    ``s2d_out``): ``x`` comes in s2d(``s2d_in``) layout and the output goes
+    out in s2d(``s2d_out``) layout; the parameters are the same, the
+    standardized weight is rearranged at apply time, explicit block
+    padding replaces TF-SAME and the bias is tiled ``s2d_out**2`` times.
     """
 
     def __init__(self, in_chs: int, out_chs: int, kernel_size: int = 3,
@@ -189,8 +206,17 @@ class WSConv(nn.Module):
         scale = torch.rsqrt((var + self.eps) * flat.shape[1])
         return ((flat - mean) * scale).view_as(w) * self.gain
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, s2d_in: int = 1,
+                s2d_out: int = 1) -> torch.Tensor:
         w = self.standardized_weight()
+        if s2d_in > 1:
+            assert self.groups == 1, "s2d mode is for the ungrouped stem"
+            k, s = self.kernel_size, self.stride
+            lo, hi = _s2d.block_padding(k, s, s2d_in, s2d_out)
+            y = F.conv2d(F.pad(x, (lo, hi, lo, hi)),
+                         _s2d.rearrange_kernel(w, s, s2d_in, s2d_out))
+            bias = self.bias.repeat_interleave(s2d_out * s2d_out)
+            return y + bias.view(1, -1, 1, 1)
         if self.use_gconv:
             y = gconv3x3(x.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0),
                          self.groups).permute(0, 3, 1, 2)

@@ -16,7 +16,15 @@ Module names, shapes and registration order are timm's ``NormFreeNet``
 (``stem.conv1..4`` or ``stem.conv``, ``stages.{s}.{b}.{skipinit_gain,
 downsample.conv, conv1, conv2, conv2b, attn.fc1/fc2, conv3,
 attn_last.fc1/fc2}``, ``final_conv``, ``head.fc``), so ``parameters()``
-order is the reference's snapshot order.  The s2d stem is not ported yet.
+order is the reference's snapshot order.
+
+``stem_s2d`` runs the stems in space-to-depth form (:mod:`..ops.s2d`, the
+JAX stems' ``s2d.enabled()`` branches): ``deep_quad`` takes s2d(4) images
+through conv1 4->2, conv2 and conv3 2->2 and conv4 2->1; ``7x7_pool`` and
+``3x3`` take s2d(2) images through their conv 2->1.  Same parameters and
+outputs; the activations are elementwise, so they commute with the
+layout.  An input whose height or width the block size does not divide
+takes the plain stem, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.s2d import space_to_depth
 from .layers import (
     DropPath,
     SqueezeExcite,
@@ -111,15 +120,21 @@ NF_TINY = NfConfig(
 class DeepQuadStem(nn.Module):
     """3x3/s2 -> 3x3 -> 3x3 -> 3x3/s2, widths c/8, c/4, c/2, c."""
 
-    def __init__(self, in_chs: int, c: int, act: str):
+    def __init__(self, in_chs: int, c: int, act: str, s2d: bool = False):
         super().__init__()
         self.conv1 = WSConv(in_chs, c // 8, 3, stride=2)
         self.conv2 = WSConv(c // 8, c // 4, 3)
         self.conv3 = WSConv(c // 4, c // 2, 3)
         self.conv4 = WSConv(c // 2, c, 3, stride=2)
         self.act = gamma_act(act)
+        self.s2d = s2d
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.s2d and x.shape[2] % 4 == 0 and x.shape[3] % 4 == 0:
+            x = self.act(self.conv1(space_to_depth(x, 4), 4, 2))
+            x = self.act(self.conv2(x, 2, 2))
+            x = self.act(self.conv3(x, 2, 2))
+            return self.conv4(x, 2, 1)
         x = self.act(self.conv1(x))
         x = self.act(self.conv2(x))
         x = self.act(self.conv3(x))
@@ -130,14 +145,19 @@ class SimpleStem(nn.Module):
     """``7x7_pool``: 7x7/2 conv, activation, TF-SAME 3x3/2 max pool (the
     pad is -inf, as flax's); ``3x3``: one 3x3/2 conv."""
 
-    def __init__(self, in_chs: int, c: int, stem_type: str, act: str):
+    def __init__(self, in_chs: int, c: int, stem_type: str, act: str,
+                 s2d: bool = False):
         super().__init__()
         self.pool = stem_type == "7x7_pool"
         self.conv = WSConv(in_chs, c, 7 if self.pool else 3, stride=2)
         self.act = gamma_act(act)
+        self.s2d = s2d
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        if self.s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            x = self.conv(space_to_depth(x, 2), 2, 1)
+        else:
+            x = self.conv(x)
         if not self.pool:
             return x
         x = tf_same_pad(self.act(x), 3, 2, value=float("-inf"))
@@ -230,17 +250,21 @@ class ClassifierHead(nn.Module):
 
 class NormFreeNet(nn.Module):
     """Normalizer-free network over :class:`NfConfig`; NCHW in, pooled
-    (N, features) out, or (N, num_classes) with a head."""
+    (N, features) out, or (N, num_classes) with a head; ``gconv`` routes
+    the grouped 3x3s to the kernels, ``stem_s2d`` runs the stem in
+    space-to-depth form."""
 
-    def __init__(self, cfg: NfConfig, in_chs: int = 3, gconv: bool = False):
+    def __init__(self, cfg: NfConfig, in_chs: int = 3, gconv: bool = False,
+                 stem_s2d: bool = False):
         super().__init__()
         self.cfg = cfg
         self.act = gamma_act(cfg.act)
         stem_chs = make_divisible(cfg.stem_chs * cfg.width_factor, cfg.ch_div)
         if cfg.stem_type == "deep_quad":
-            self.stem = DeepQuadStem(in_chs, stem_chs, cfg.act)
+            self.stem = DeepQuadStem(in_chs, stem_chs, cfg.act, stem_s2d)
         elif cfg.stem_type in ("7x7_pool", "3x3"):
-            self.stem = SimpleStem(in_chs, stem_chs, cfg.stem_type, cfg.act)
+            self.stem = SimpleStem(in_chs, stem_chs, cfg.stem_type, cfg.act,
+                                   stem_s2d)
         else:
             raise ValueError(cfg.stem_type)
         # 3x3 stems downsample only 2x, so stage 0 strides too (timm)

@@ -5,8 +5,10 @@ reference's ``ImageEncoder`` timm dispatch, ``networks.py:648-688``, and
 ``utils.get_network`` / ``get_eval_pool``, ``utils.py:148-246,336-360``).
 Feature dims follow the reference: ``nfnet`` is headless (2304 features),
 its ``--transfer`` tower keeps a 1000-class head, and ``vit`` /
-``nf_resnet50`` / ``nf_regnet`` / ``resnet50`` keep their 1000-class heads.
-The CLIP and ConvNeXt towers are not ported yet (ROADMAP A, item 16).
+``nf_resnet50`` / ``nf_regnet`` / ``resnet50`` keep their 1000-class heads;
+``clip`` (CLIP ViT-B/32's ``encode_image``) gives 512 features and
+``convnext`` (ConvNeXt-Tiny, headless) 768, the true widths (the
+reference's dim table says 1000 and 640, ``networks.py:816-819``).
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import torch
 from torch import nn
 
 from . import convnet as _convnet
+from . import convnext as _convnext
 from . import resnet as _resnet
 from . import vit as _vit
+from .clip_vision import ClipVisionTransformer
 from .nfnet import NF_REGNET_B1, NF_RESNET50, NF_TINY, NFNET_L0, NormFreeNet
 
 # image-tower output dims (what the contrastive loss sees)
@@ -37,10 +41,9 @@ IMAGE_FEATURE_DIMS = {
     "convnet": 768,
     "convnet_tiny": 64,
     "nf_tiny": 128,
+    "clip": 512,
+    "convnext": 768,
 }
-
-#: towers of the JAX zoo that this package does not build yet
-UNPORTED = ("clip", "convnext")
 
 _NF = {"nfnet": NFNET_L0, "nf_tiny": NF_TINY, "nf_resnet50": NF_RESNET50,
        "nf_regnet": NF_REGNET_B1}
@@ -48,35 +51,34 @@ _NF = {"nfnet": NFNET_L0, "nf_tiny": NF_TINY, "nf_resnet50": NF_RESNET50,
 #: flax's auto-name of each network class inside the JAX ImageTower
 JAX_TOWER_KEYS = {NormFreeNet: "NormFreeNet_0",
                   _convnet.ConvNet: "ConvNet_0", _resnet.ResNet: "ResNet_0",
-                  _vit.VisionTransformer: "VisionTransformer_0"}
-
-
-def _refuse_unported(name: str) -> None:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"--image_encoder={name}: the CLIP and ConvNeXt towers are not "
-            f"ported yet (ROADMAP A, item 16)")
+                  _vit.VisionTransformer: "VisionTransformer_0",
+                  ClipVisionTransformer: "ClipVisionTransformer_0",
+                  _convnext.ConvNeXt: "ConvNeXt_0"}
 
 
 def feature_dim(name: str, transfer: bool = False) -> int:
     """The tower's output width (the JAX ``create_image_encoder``'s)."""
-    _refuse_unported(name)
     return IMAGE_FEATURE_DIMS["nfnet_transfer" if (name == "nfnet"
                                                    and transfer) else name]
 
 
 def build_tower(name: str, transfer: bool = False, gconv: bool = False,
-                image_size: int = 224) -> nn.Module:
+                image_size: int = 224, stem_s2d: bool = False) -> nn.Module:
     """The network of the JAX ``zoo._build(name, transfer)``; ``gconv``
-    routes the NF towers' grouped 3x3s to the kernels, ``image_size``
-    sizes ViT's ``pos_embed``."""
+    routes the NF towers' grouped 3x3s to the kernels, ``stem_s2d`` runs
+    their stems in space-to-depth form, ``image_size`` sizes the ViTs'
+    positional embeddings."""
     if name in _NF:
         cfg = _NF[name]
         if name == "nfnet" and transfer:
             cfg = dataclasses.replace(cfg, num_classes=1000)
-        return NormFreeNet(cfg, gconv=gconv)
+        return NormFreeNet(cfg, gconv=gconv, stem_s2d=stem_s2d)
     if name in ("vit", "vit_tiny"):
         return _vit.vit_tiny_patch16_224(1000, image_size)
+    if name == "clip":
+        return ClipVisionTransformer(image_size=image_size)
+    if name == "convnext":
+        return _convnext.convnext_tiny(num_classes=0)
     if name == "resnet50":
         return _resnet.resnet50(1000)
     if name == "resnet18":
@@ -87,7 +89,6 @@ def build_tower(name: str, transfer: bool = False, gconv: bool = False,
         return _convnet.ConvNet(768, gap=True)
     if name == "convnet_tiny":
         return _convnet.ConvNet(64, net_width=16, net_depth=2, gap=True)
-    _refuse_unported(name)
     raise ValueError(f"unknown image encoder: {name}")
 
 
@@ -104,10 +105,12 @@ class ImageTower(nn.Module):
     """
 
     def __init__(self, encoder_name: str, gconv: bool = False,
-                 transfer: bool = False, image_size: int = 224):
+                 transfer: bool = False, image_size: int = 224,
+                 stem_s2d: bool = False):
         super().__init__()
         self.encoder_name = encoder_name
-        self.model = build_tower(encoder_name, transfer, gconv, image_size)
+        self.model = build_tower(encoder_name, transfer, gconv, image_size,
+                                 stem_s2d)
         self.jax_names = {"model": JAX_TOWER_KEYS[type(self.model)]}
 
     def forward(self, x: torch.Tensor, train: bool = False,
@@ -116,10 +119,10 @@ class ImageTower(nn.Module):
 
 
 def create_image_encoder(name: str, transfer: bool = False,
-                         gconv: bool = False,
-                         image_size: int = 224) -> Tuple[ImageTower, int]:
+                         gconv: bool = False, image_size: int = 224,
+                         stem_s2d: bool = False) -> Tuple[ImageTower, int]:
     """(the tower, its output width), as the JAX ``create_image_encoder``."""
-    return (ImageTower(name, gconv, transfer, image_size),
+    return (ImageTower(name, gconv, transfer, image_size, stem_s2d),
             feature_dim(name, transfer))
 
 

@@ -11,9 +11,11 @@ visualize.py``, with the same file names:
   of each synthetic text embedding (distill.py:89-95);
 * ``distilled_{it}.npz``: ``image_syn``, ``text_syn`` and the learned
   ``syn_lr_img``/``syn_lr_txt`` (what ``cli/eval_distilled`` reads);
-* under ``--save_pt``: ``images_{it}.pt`` (NCHW) and ``labels_{it}.pt``.
-
-The ZCA variants wait for ``ops/zca.py`` (ROADMAP A, item 17).
+* under ``--save_pt``: ``images_{it}.pt`` (NCHW) and ``labels_{it}.pt``;
+* under ``--zca`` (a fitted :class:`~..ops.zca.ZCAWhitening`), the
+  de-whitened set (distill.py:407-426): ``zca_synthetic_images_{it}.png``,
+  ``clipped_zca_synthetic_images_{it}_std_{cv}.png`` and, with
+  ``--save_pt``, ``images_zca_{it}.pt`` (NCHW).
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ def save_visualizations(save_dir: str, it: int, image_syn: np.ndarray,
                         train_caption_embed: np.ndarray,
                         clip_vals: Sequence[float] = (2.5,),
                         save_grids: bool = True, syn_lrs=None,
-                        save_pt: bool = False) -> dict:
+                        save_pt: bool = False, zca=None) -> dict:
     """Write the artifacts listed above; -> {kind: path}.
 
     ``save_grids=False`` is the reference's ``ipc >= 50 and not
@@ -73,7 +75,7 @@ def save_visualizations(save_dir: str, it: int, image_syn: np.ndarray,
     os.makedirs(save_dir, exist_ok=True)
     out = {}
     if save_pt:
-        out.update(_save_torch(save_dir, it, image_syn, text_syn))
+        out.update(_save_torch(save_dir, it, image_syn, text_syn, zca))
     if save_grids:
         p = os.path.join(save_dir, f"synthetic_images_{it}.png")
         Image.fromarray(make_grid(image_syn)).save(p)
@@ -93,6 +95,19 @@ def save_visualizations(save_dir: str, it: int, image_syn: np.ndarray,
                              f"clipped_synthetic_images_{it}_std_{cv}.png")
             Image.fromarray(make_grid(clipped)).save(p)
             out[f"clipped_{cv}"] = p
+
+        if zca is not None:
+            recon = zca.inverse_transform(np.asarray(image_syn))
+            p = os.path.join(save_dir, f"zca_synthetic_images_{it}.png")
+            Image.fromarray(make_grid(recon)).save(p)
+            out["zca_grid"] = p
+            for cv in clip_vals:
+                mu, sd = float(np.mean(recon)), float(np.std(recon))
+                clipped = np.clip(recon, mu - cv * sd, mu + cv * sd)
+                p = os.path.join(
+                    save_dir, f"clipped_zca_synthetic_images_{it}_std_{cv}.png")
+                Image.fromarray(make_grid(clipped)).save(p)
+                out[f"zca_clipped_{cv}"] = p
     out["tensors"] = _save_tensors(save_dir, it, image_syn, text_syn,
                                    syn_lrs)
     return out
@@ -111,14 +126,23 @@ def _save_tensors(save_dir: str, it: int, image_syn, text_syn,
     return p
 
 
-def _save_torch(save_dir: str, it: int, image_syn, text_syn) -> dict:
+def _nchw(images) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(images, np.float32).transpose(0, 3, 1, 2)))
+
+
+def _save_torch(save_dir: str, it: int, image_syn, text_syn,
+                zca=None) -> dict:
     """The reference's ``images_{it}.pt`` (NCHW float32) and
-    ``labels_{it}.pt`` saves (distill_original.py:292-296)."""
-    imgs = np.ascontiguousarray(
-        np.asarray(image_syn, np.float32).transpose(0, 3, 1, 2))
+    ``labels_{it}.pt`` saves (distill_original.py:292-296), and with a ZCA
+    the de-whitened ``images_zca_{it}.pt`` (distill.py:407-410)."""
     out = {"images_pt": os.path.join(save_dir, f"images_{it}.pt"),
            "labels_pt": os.path.join(save_dir, f"labels_{it}.pt")}
-    torch.save(torch.from_numpy(imgs), out["images_pt"])
+    torch.save(_nchw(image_syn), out["images_pt"])
     torch.save(torch.from_numpy(np.array(text_syn, np.float32)),
                out["labels_pt"])
+    if zca is not None:
+        out["images_zca_pt"] = os.path.join(save_dir, f"images_zca_{it}.pt")
+        torch.save(_nchw(zca.inverse_transform(np.asarray(image_syn))),
+                   out["images_zca_pt"])
     return out

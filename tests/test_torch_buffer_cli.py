@@ -238,12 +238,8 @@ def test_jax_reads_port_buffers_and_port_distills_them(runs, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (dict(zca=True), "--zca"), (dict(mesh_shape=(2,)), "--mesh_shape"),
-    (dict(distributed=True), "--distributed"),
-    (dict(text_encoder="clip"), "--text_encoder=clip"),
-    (dict(stem_s2d=True), "--stem_s2d"),
-    (dict(image_encoder="convnext"), "--image_encoder=convnext"),
-    (dict(image_encoder="clip"), "--image_encoder=clip")])
+    (dict(mesh_shape=(2,)), "--mesh_shape"),
+    (dict(distributed=True), "--distributed")])
 def test_unported_flags_raise_before_data(tmp_path, monkeypatch, flag, match):
     def no_data(cfg):
         raise AssertionError("data was read before the flag check")
@@ -253,6 +249,78 @@ def test_unported_flags_raise_before_data(tmp_path, monkeypatch, flag, match):
     with pytest.raises(NotImplementedError, match=match) as err:
         pcli.main(Config(**{**KW, **flag, "device": "cpu"}))
     assert "ROADMAP A, item 1" in str(err.value)
+
+
+NEW_FLAGS = [dict(zca=True), dict(text_encoder="clip"), dict(stem_s2d=True),
+             dict(image_encoder="convnext"), dict(image_encoder="clip")]
+
+
+@pytest.mark.parametrize("flag", NEW_FLAGS)
+def test_new_flags_run_the_buffer_cli(tmp_path, monkeypatch, flag):
+    """Each flag of the CLIP / ConvNeXt / ZCA / s2d slice through
+    ``cli/buffer.main`` at toy size (1 expert x 1 epoch; CLIP ViT-B/32 and
+    ConvNeXt as narrow stand-ins with their layer kinds and widths): the
+    caption caches and buffers under the JAX package's names, read back by
+    the JAX package (``.pt`` = ``.npz``, the CLIP and ConvNeXt snapshots in
+    its ravel order), and by the port at the tower's width.  ``--zca`` only
+    names the CIFAR buffer directories; ``--stem_s2d`` builds the s2d stem
+    and trains as the plain stem does (1e-4)."""
+    from multimodal_dataset_distillation_tpu.data import textcache as jtc
+    from test_torch_zoo_clip import narrow_towers
+
+    narrow_towers(monkeypatch)
+    built = []
+    build = pcli.build_bi_encoder
+
+    def keep(cfg, device=None):
+        built.append(build(cfg, device))
+        return built[-1]
+
+    monkeypatch.setattr(pcli, "build_bi_encoder", keep)
+    monkeypatch.delenv("MDD_STEM_S2D", raising=False)
+    kw = {**KW, "num_experts": 1, "train_epochs": 1, "device": "cpu",
+          "buffer_path": "buffers", **flag}
+
+    def run(work, **extra):
+        (tmp_path / work).mkdir()
+        monkeypatch.chdir(tmp_path / work)
+        cfg = Config(**{**kw, **extra})
+        assert pcli.main(cfg) == [0]
+        return cfg, os.path.join("buffers", "synthetic", cfg.image_encoder,
+                                 cfg.text_encoder)
+
+    cfg, d = run("run")
+    model = built[-1]
+    jcfg = JConfig(**{k: v for k, v in kw.items() if k != "device"})
+    def no_process(*a, **k):
+        raise AssertionError("the JAX package recomputed a port cache")
+
+    for kind in ("text", "train"):   # caches the JAX package reads as is
+        z = jtc.load_or_process_file(kind, no_process, jcfg, None)
+        assert z["bert_test_embed"].shape[1] == 128
+    for kind, tower in (("img", model.image_encoder),
+                        ("txt", model.text_projection)):
+        stem = os.path.join(d, f"{kind}_replay_buffer_0")
+        (npz,) = jbuffer_io.load_buffer(stem + ".npz")
+        assert npz.shape == (2, sum(p.numel() for p in tower.parameters()))
+        assert np.isfinite(npz).all()
+        (a,) = buffer_io.load_buffer(stem + ".npz", tower)
+        (b,) = buffer_io.load_buffer(stem + ".pt", tower)
+        np.testing.assert_array_equal(a, b)
+        if kind == "img" and cfg.image_encoder in ("clip", "convnext"):
+            assert not buffer_io.has_reference_order(tower)
+            (pt,) = jbuffer_io.load_buffer(stem + ".pt")   # as stored
+            np.testing.assert_array_equal(pt, npz)
+    if cfg.stem_s2d:
+        assert model.image_encoder.model.stem.s2d
+        (on,) = buffer_io.load_buffer(
+            os.path.join(d, "img_replay_buffer_0.npz"), model.image_encoder)
+        _, d_off = run("plain", stem_s2d=False)
+        assert not built[-1].image_encoder.model.stem.s2d
+        (off,) = buffer_io.load_buffer(
+            os.path.join(d_off, "img_replay_buffer_0.npz"),
+            built[-1].image_encoder)
+        assert np.linalg.norm(on - off) <= 1e-4 * np.linalg.norm(off)
 
 
 @pytest.mark.parametrize("flag", [

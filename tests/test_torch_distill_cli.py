@@ -419,10 +419,7 @@ def test_port_buffers_load_in_jax_and_back(tmp_path):
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("flag", [
-    dict(zca=True), dict(mesh_shape=(2,)),
-    dict(text_encoder="clip"), dict(stem_s2d=True),
-    dict(image_encoder="convnext"), dict(image_encoder="clip")])
+@pytest.mark.parametrize("flag", [dict(mesh_shape=(2,))])
 def test_queued_flags_raise_at_start_up(tmp_path, monkeypatch, flag):
     def no_data(cfg):
         raise AssertionError("data was read before the flag check")
@@ -430,6 +427,97 @@ def test_queued_flags_raise_at_start_up(tmp_path, monkeypatch, flag):
     monkeypatch.setattr(pcli, "get_dataset", no_data)
     with pytest.raises(NotImplementedError, match=r"ROADMAP A, item 1\d"):
         pcli.main(_cfg(tmp_path, **flag))
+
+
+@pytest.mark.parametrize("flag", [
+    # 16^2 keeps the host's eigendecomposition at 768 features
+    dict(zca=True, image_size=16), dict(text_encoder="clip"),
+    dict(stem_s2d=True), dict(image_encoder="convnext"),
+    dict(image_encoder="clip")])
+def test_new_flags_run_the_distill_cli(tmp_path, monkeypatch, capsys, flag):
+    """Each flag of the CLIP / ConvNeXt / ZCA / s2d slice through
+    ``cli/distill.main`` at toy size from the real-pair init (dummy
+    buffers, one outer step, an eval block of one student at iteration 0
+    with the artifacts and ``--save_pt``; CLIP ViT-B/32 and ConvNeXt as
+    narrow stand-ins with their layer kinds and widths): finite losses,
+    caption caches and buffers that the JAX package reads as they are.
+    ``--zca``: the whitened init, and ``images_zca_0.pt`` the
+    de-whitened ``distilled_0.npz`` pixels (1e-5).  ``--stem_s2d``: the
+    distill and eval students on the s2d stem, the losses those of the
+    plain stem (1e-5)."""
+    from multimodal_dataset_distillation_tpu.data import textcache as jtc
+    from multimodal_dataset_distillation_tpu_torch.ops import zca as pzca
+    from test_torch_zoo_clip import narrow_towers
+
+    narrow_towers(monkeypatch)
+    monkeypatch.delenv("MDD_STEM_S2D", raising=False)
+    built, fitted = [], []
+    build = pcli.build_bi_encoder
+
+    def keep(cfg, device=None):
+        built.append(build(cfg, device))
+        return built[-1]
+
+    class Keep(pzca.ZCAWhitening):
+        def fit(self, images):
+            fitted.append(self)
+            return super().fit(images)
+
+        def transform(self, images):
+            self.whitened = super().transform(images)
+            return self.whitened
+
+    monkeypatch.setattr(pcli, "build_bi_encoder", keep)
+    monkeypatch.setattr(pcli, "ZCAWhitening", Keep)
+
+    def run(work, **extra):
+        (tmp_path / work).mkdir()
+        monkeypatch.chdir(tmp_path / work)
+        cfg = _cfg(tmp_path / work, Iteration=1, eval_it=2, num_eval=1,
+                   save_pt=True, **{**flag, **extra})
+        distiller, history = pcli.main(cfg)
+        losses = _losses(cfg)
+        assert sorted(losses) == [0, 1]
+        assert all(map(np.isfinite, losses.values()))
+        assert [it for it, _ in history] == [0]
+        assert all(np.isfinite(v) and 0 <= v <= 100
+                   for v in history[0][1][0].values())
+        return cfg, distiller, losses
+
+    cfg, distiller, losses = run("run")
+    jcfg = JConfig(**{**KW, **flag})
+
+    def no_process(*a, **k):
+        raise AssertionError("the JAX package recomputed a port cache")
+
+    z = jtc.load_or_process_file("text", no_process, jcfg, None)
+    assert z["bert_test_embed"].shape[1] == 128
+    img = tmp_path / "run" / "buffers" / "img_replay_buffer_0.npz"
+    (traj,) = jbuffer_io.load_buffer(str(img))
+    assert traj.shape[1] == sum(
+        p.numel() for p in distiller.model.image_encoder.parameters())
+    run_dir = tmp_path / "run" / "logs" / "synthetic" / "run"
+    image_syn, _, _ = load_distilled(str(run_dir / "distilled_0.npz"))
+    if cfg.zca:
+        (zca,) = fitted
+        want = zca.inverse_transform(image_syn).transpose(0, 3, 1, 2)
+        got = torch.load(run_dir / "images_zca_0.pt", weights_only=True)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        assert (run_dir / "zca_synthetic_images_0.png").exists()
+        assert (run_dir / "clipped_zca_synthetic_images_0_std_2.5.png"
+                ).exists()
+        # the real-pair init was whitened (the eval block at iteration 0
+        # saw the init)
+        np.testing.assert_array_equal(image_syn, zca.whitened)
+    else:
+        assert not fitted and not (run_dir / "images_zca_0.pt").exists()
+    if cfg.stem_s2d:
+        assert all(m.image_encoder.model.stem.s2d for m in built)
+        assert len(built) >= 3   # the start-up check, the student, eval
+        _, _, plain = run("plain", stem_s2d=False)
+        assert not built[-1].image_encoder.model.stem.s2d
+        np.testing.assert_allclose([losses[i] for i in (0, 1)],
+                                   [plain[i] for i in (0, 1)], rtol=1e-5)
 
 
 @pytest.mark.parametrize("flag,match", [

@@ -116,8 +116,40 @@ def test_missing_train_cache_is_computed(tmp_path, towers, capsys):
     assert embed.shape == (6, 128)
 
 
-def test_clip_text_tower_is_queued():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        textcache.make_text_encoder(Config(text_encoder="clip",
-                                           device="cpu"))
+def test_clip_text_caches_match_jax(tmp_path):
+    """``--text_encoder=clip``: ``make_text_encoder`` builds the frozen CLIP
+    text tower (the tiny one here, the JAX init carried across), and both
+    caches come out under the JAX package's names with its embeddings."""
+    from multimodal_dataset_distillation_tpu.models import clip_text as jct
+    from multimodal_dataset_distillation_tpu_torch.models import clip_text
+    from multimodal_dataset_distillation_tpu_torch.models.convert import (
+        params_from_jax,
+    )
+
+    kw = {**KW, "text_encoder": "clip"}
+    cfg, jcfg = Config(**kw, device="cpu"), JConfig(**kw)
+    enc = textcache.make_text_encoder(cfg)
+    assert isinstance(enc, clip_text.ClipTextEncoder)
+    assert enc.hidden_size == 128
+    jenc = jtc.make_text_encoder(jcfg)
+    enc.module.load_state_dict(params_from_jax(jenc.variables["params"],
+                                               enc.module))
+    _, testloader, train_ds, _ = get_dataset(cfg)
+    _, jtestloader, jtrain_ds, _ = jget(jcfg)
+    (tmp_path / "j").mkdir()
+    for fn, jfn, args, jargs in (
+            (textcache.textprocess, jtc.textprocess, testloader,
+             jtestloader),
+            (textcache.textprocess_train, jtc.textprocess_train,
+             train_ds.get_all_captions(), jtrain_ds.get_all_captions())):
+        got = fn(cfg, args, encoder=enc, cache_dir=str(tmp_path))
+        want = jfn(jcfg, jargs, encoder=jenc, cache_dir=str(tmp_path / "j"))
+        assert os.path.basename(got) == os.path.basename(want)
+        with np.load(got) as a, np.load(want) as b:
+            assert a["bert_test_embed"].shape[1] == 128
+            np.testing.assert_allclose(a["bert_test_embed"],
+                                       b["bert_test_embed"], rtol=1e-5,
+                                       atol=1e-5)
+    assert _files(tmp_path / "j") == ["synthetic_clip_text_embed.npz",
+                                      "synthetic_clip_train_text_embed.npz"]
     assert bert.BERT_TINY.hidden_size == 128

@@ -208,9 +208,8 @@ def test_feature_dims_match_jax():
     assert dim == 1000 and tower.model.head.fc.out_features == 1000
     assert zoo.feature_dim("nfnet", True) == jzoo.create_image_encoder(
         "nfnet", True)[1] == 1000
-    # the port's table is JAX's, less the towers not ported yet
-    assert set(jzoo.IMAGE_FEATURE_DIMS) - set(zoo.IMAGE_FEATURE_DIMS) == set(
-        zoo.UNPORTED)
+    # the port's table is JAX's, every tower included
+    assert zoo.IMAGE_FEATURE_DIMS == jzoo.IMAGE_FEATURE_DIMS
 
 
 @pytest.mark.parametrize("kw", [

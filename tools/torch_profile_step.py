@@ -4,12 +4,14 @@ on one NVIDIA card.
 
     python3 tools/torch_profile_step.py [--timed 3] [--steps 1] [--no-gconv]
                                         [--image_encoder nf_regnet]
+                                        [--stem_s2d]
                                         [--trace build/step_trace.json]
 
 Builds the headline configuration of ``chip_smoke.py`` (NFNet-L0 at 224^2,
 or the tower ``--image_encoder`` names, nq=100, mb=100, syn_steps=8, bf16
 inner compute, forward-HVP, grouped-conv kernels on unless
-``--no-gconv``), takes one warm-up outer step, times
+``--no-gconv``, the NF stems in space-to-depth form with ``--stem_s2d``),
+takes one warm-up outer step, times
 ``--timed`` outer steps without the profiler, then profiles ``--steps``
 outer steps with ``torch.profiler`` and prints:
 
@@ -70,13 +72,15 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=1)
     ap.add_argument("--no-gconv", action="store_true")
     ap.add_argument("--image_encoder", default="nfnet")
+    ap.add_argument("--stem_s2d", action="store_true")
     ap.add_argument("--trace", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_step: no CUDA card", file=sys.stderr)
         return 3
     cfg = chip_smoke.main_cfg(Config, image_encoder=args.image_encoder,
-                              pallas_gconv=not args.no_gconv)
+                              pallas_gconv=not args.no_gconv,
+                              stem_s2d=args.stem_s2d)
     d, traj_img, traj_txt, rng = chip_smoke.make_distiller(cfg)
     float(d.step_traj(traj_img, traj_txt, 0,
                       d.sample_indices(rng))["grand_loss"])
@@ -115,6 +119,7 @@ def main() -> int:
         "card": chip_smoke.card_line(),
         "image_encoder": cfg.image_encoder,
         "pallas_gconv": cfg.pallas_gconv,
+        "stem_s2d": cfg.stem_s2d,
         "wall_ms_per_step": plain_wall * 1e3,
         "profiled_wall_ms_per_step": wall * 1e3,
         "device_busy_ms_per_step": busy,
