@@ -23,14 +23,19 @@ each of which raises on failure:
    gradient; the CUDA-core kernels in float32 and bfloat16, the bf16
    tensor-core kernels in bfloat16, the TF32 forward and wgrad in
    float32.  The tensor-core wgrads and the TF32 forward twice, for the
-   same bits.  Double-backward HVPs through the autograd Functions in
-   float32 (TF32 kernels) and bfloat16 (bf16 tensor-core kernels).  Times
+   same bits.  Hessian-vector products through the autograd Functions in
+   float32 (TF32 kernels) and bfloat16 (bf16 tensor-core kernels) in three
+   orientations: reverse over reverse, grad of jvp (the Functions'
+   forward-mode rules under dual tensors) and jvp of grad (``torch.func``).
+   Times
    of each kernel with a warm and a cold L2, of the plain version and of
    the cuDNN call, beside the card's bound.
 3. The main path: ``Distiller.step_traj`` outer steps of NFNet-L0 at 224^2,
-   nq=100, mb=100, syn_steps=8, bf16 inner compute, forward-HVP, kernels
-   on, dropout and DropPath active; launch counters read around it: every
-   grouped conv, dgrad and wgrad on the tensor-core kernels.
+   nq=100, mb=100, syn_steps=8, bf16 inner compute, forward-HVP with the
+   JAX defaults (``fr_bwd="rof"``: grad of jvp, the merged-tangent conv),
+   kernels on, dropout and DropPath active; launch counters read around
+   it: every grouped conv, its tangent convs, dgrad and wgrad on the
+   tensor-core kernels.
 4. One float32 outer step with the kernels (the TF32 forward and wgrad;
    counters read around it) against the same step on
    ``F.conv2d`` (TF32 off), from the same seed and state.
@@ -99,8 +104,8 @@ each of which raises on failure:
    1e-5 relative, each meta-gradient 1e-4 relative error norm) and in
    float32 on the kernels (TF32 off; loss 1e-5, meta-gradients phase 4's
    1e-2, the float32 step's own spread on the card being ~3e-4); then
-   the bf16 headline step with and without it, in 3 alternating pairs of
-   2 timed steps after a warm-up step each, medians and peaks printed,
+   the bf16 headline step with and without it, in one pair of 2 timed
+   steps after a warm-up step each, medians and peaks printed,
    each run's launches phase 3's exactly.  (a) CLIP ViT-B/32 at 224^2
    with the CLIP text tower (base, random init from the seed, 77 tokens,
    512-d caches) and (b) ConvNeXt-Tiny at 224^2 with BERT-base, each on
@@ -112,6 +117,19 @@ each of which raises on failure:
    ``--zca --save_pt True``, 2 outer steps: ``images_zca_0.pt`` against
    the fitted ZCA's ``inverse_transform`` of ``distilled_0.npz``, 1e-5.
    No grouped-conv kernel launches on (a), (b) and (d).
+11. The meta-backward's orientations (``fr_bwd`` ``"rof"`` with
+   ``fused_jvp`` on and off, ``"for"``).  (a) the LayerNorm, log-softmax
+   and GroupNorm forms under grad-of-jvp against reverse-over-reverse in
+   float64 (the port's 1e-12; the fused ops' result printed beside); an
+   NFNet-L0 outer step at 64^2 (mb 4, 2 inner steps) in float64 on
+   ``F.conv2d`` in each mode against the others and ``hvp_mode="reverse"``
+   (loss and meta-gradients 1e-9 relative error norm); the float32 step
+   of phase 4 in the two other modes, held as phase 4.  (b) the bf16
+   headline step in 3 rounds over the modes of 2 timed steps after a
+   warm-up step each: medians, ranges, peaks, each run's launches phase
+   3's exactly.  (c) one profiled step per mode: device ms and launches,
+   the stems' double-backward cuDNN kernels' ms, the count of
+   ``_convolution_double_backward`` calls.
 
 Phase 2 also times the CUDA-core kernels and the TF32 kernels in float32
 (the dtype of phases 4-8's eval students) beside cuDNN's float32 call with
@@ -174,7 +192,13 @@ KERNELS = {
 # choice for the 8-channel kernels, the forced choice for the others
 ROUTE_TC = {"simt": False, "tc": True, "tf32": True, "narrow": None}
 # launches per outer step of the headline configuration: each grouped site
-# runs 8 forward-kernel and 4 wgrad-kernel calls per inner step
+# runs 8 forward-kernel and 4 wgrad-kernel calls per inner step, in either
+# orientation of the meta-backward (tests/test_torch_gconv_jvp.py counts
+# them): the inner gradient's forward and dgrad (1 wgrad), then under
+# fr_bwd="rof" the primal forward, the two tangent convs of the forward-
+# mode rule and the three dgrads of the reverse pass over them (3 wgrads),
+# under "for" the forward, the dgrad and the jvp's two convs of each (the
+# wgrad's jvp: 2 wgrads)
 MAIN_PATH_PER_STEP = {"gconv3x3_fwd_tc": 19 * 8 * 8,
                       "gconv3x3_wgrad_tc": 19 * 4 * 8}
 METRIC_KEYS = ("txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1",
@@ -420,17 +444,25 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
 
 
 def check_hvp(gc):
-    """Double backward through GConv3x3 (its backward is GConv3x3 and
-    GConv3x3Wgrad applies, so the HVP runs on the kernels) against autograd
-    through the plain version, at 64 channels per group (float32 on the
-    TF32 forward and wgrad, bfloat16 on the tensor-core kernels) and at 8
-    (the 8-channel kernels in both dtypes).  float32 tolerance 1e-4 of the
-    largest plain value.  bfloat16 against the plain version in bfloat16 on
-    the same operands: both round every intermediate (conv outputs, sin,
-    cos, products) to bfloat16 at the same places and differ only in the
-    order of the float32 sums inside each conv, so 2e-2 of the largest
+    """Hessian-vector products through GConv3x3 (its backward and its
+    forward-mode rule are GConv3x3 and GConv3x3Wgrad applies, so every
+    orientation runs on the kernels) against the same through the plain
+    version, at 64 channels per group (float32 on the TF32 forward and
+    wgrad, bfloat16 on the tensor-core kernels) and at 8 (the 8-channel
+    kernels in both dtypes), in the three orientations: reverse over
+    reverse (``torch.autograd.grad`` of the gradient's dot with v), the
+    gradient of a forward-mode jvp (``fr_bwd="rof"``: dual tensors of
+    ``torch.autograd.forward_ad``) and the jvp of the gradient
+    (``fr_bwd="for"``: ``torch.func``).  float32 tolerance 1e-4 of the
+    largest plain value.  bfloat16 against the plain version in bfloat16
+    on the same operands: both round every intermediate (conv outputs,
+    sin, cos, products) to bfloat16 at the same places and differ only in
+    the order of the float32 sums inside each conv, so 2e-2 of the largest
     plain value (a few bfloat16 ulps, 2^-8 each, carried through two
     chained convs)."""
+    import torch.autograd.forward_ad as fwAD
+
+    torch.backends.cudnn.allow_tf32 = False   # the plain version's convs
     gen = torch.Generator(device="cuda").manual_seed(1)
     # (groups, channels per group, image size, (dtype, route) pairs)
     for groups, cpg, h, runs in (
@@ -443,33 +475,50 @@ def check_hvp(gc):
                         generator=gen) / scale
         vx, vw = torch.randn_like(x), torch.randn_like(w) / scale
         for dtype, route in runs:
-            def hvp(conv):
-                xx = x.to(dtype).requires_grad_()
-                ww = w.to(dtype).requires_grad_()
-                gx, gw = torch.autograd.grad(
-                    torch.sin(conv(xx, ww, groups)).sum(), (xx, ww),
-                    create_graph=True)
-                return torch.autograd.grad(
-                    (gx * vx.to(dtype)).sum() + (gw * vw.to(dtype)).sum(),
-                    (xx, ww))
+            ops = [t.to(dtype) for t in (x, w, vx, vw)]
 
-            before = dict(gc.LAUNCHES)
-            got = hvp(gc.gconv3x3)
-            torch.cuda.synchronize()
-            ran = {k for k in gc.LAUNCHES if gc.LAUNCHES[k] != before[k]}
-            if ran != set(route_keys(route)):
-                raise AssertionError(f"the {dtype} HVP at {cpg} channels per "
-                                     f"group launched {sorted(ran)}")
-            want = hvp(gc.gconv3x3_ref)
+            def loss(conv):
+                return lambda a, b: torch.sin(conv(a, b, groups)).sum()
+
+            def ror(conv, xx, ww, v1, v2):
+                xx, ww = xx.requires_grad_(), ww.requires_grad_()
+                gx, gw = torch.autograd.grad(loss(conv)(xx, ww), (xx, ww),
+                                             create_graph=True)
+                return torch.autograd.grad(
+                    (gx * v1).sum() + (gw * v2).sum(), (xx, ww))
+
+            def rof(conv, xx, ww, v1, v2):
+                xx, ww = xx.requires_grad_(), ww.requires_grad_()
+                with fwAD.dual_level():
+                    out = loss(conv)(fwAD.make_dual(xx, v1),
+                                     fwAD.make_dual(ww, v2))
+                    hv = fwAD.unpack_dual(out).tangent
+                return torch.autograd.grad(hv, (xx, ww))
+
+            def for_(conv, xx, ww, v1, v2):
+                return torch.func.jvp(torch.func.grad(loss(conv), (0, 1)),
+                                      (xx, ww), (v1, v2))[1]
+
             tol = 1e-4 if dtype == torch.float32 else 2e-2
-            for name, a, b in zip(("hvp_x", "hvp_w"), got, want):
-                err, big = max_err(a, b.float())
-                print(f"  {name:<6} cpg {cpg:<3} {str(dtype)[6:]:<8} "
-                      f"max_abs_err {err:.3e}  max|plain| {big:.3e}  tol "
-                      f"{tol * big:.3e}", flush=True)
-                if not err <= tol * big:
-                    raise AssertionError(f"{name} {dtype} cpg {cpg}: {err} > "
-                                         f"{tol} x {big}")
+            for tag, hvp in (("ror", ror), ("rof", rof), ("for", for_)):
+                before = dict(gc.LAUNCHES)
+                got = hvp(gc.gconv3x3, *[t.clone() for t in ops])
+                torch.cuda.synchronize()
+                ran = {k for k in gc.LAUNCHES if gc.LAUNCHES[k] != before[k]}
+                if ran != set(route_keys(route)):
+                    raise AssertionError(
+                        f"the {dtype} {tag} HVP at {cpg} channels per group "
+                        f"launched {sorted(ran)}")
+                want = hvp(gc.gconv3x3_ref, *[t.clone() for t in ops])
+                for name, a, b in zip(("hvp_x", "hvp_w"), got, want):
+                    err, big = max_err(a, b.float())
+                    print(f"  {tag} {name:<6} cpg {cpg:<3} "
+                          f"{str(dtype)[6:]:<8} max_abs_err {err:.3e}  "
+                          f"max|plain| {big:.3e}  tol {tol * big:.3e}",
+                          flush=True)
+                    if not err <= tol * big:
+                        raise AssertionError(f"{tag} {name} {dtype} cpg "
+                                             f"{cpg}: {err} > {tol} x {big}")
 
 
 def main_cfg(Config, **kw):
@@ -561,6 +610,42 @@ def main_path(gc, cfg, steps: int = 3):
                  float(st.syn_lr_txt))
 
 
+META_GRADS = ("pixels", "texts", "lr_img", "lr_txt")
+
+
+def meta_grads(gc, d, traj_img, traj_txt, rng):
+    """One outer step of a fresh Distiller ``d`` (from :func:`make_distiller`)
+    -> (its loss and meta-gradients in float64, the launches).  In float64
+    the trajectory goes in as float64 too (``put_trajectory`` stores
+    float32, and a float32 start keeps the students' carry float32)."""
+    if d.cfg.inner_dtype == "float64":
+        traj_img, traj_txt = traj_img.double(), traj_txt.double()
+    st0 = d.state
+    gc.reset_launches()
+    m = d.step_traj(traj_img, traj_txt, 0, d.sample_indices(rng))
+    torch.cuda.synchronize()
+    st = d.state
+    # first step: trace = g, update = -lr * g
+    res = {"loss": float(m["grand_loss"]),
+           "pixels": ((st0.image_syn - st.image_syn) / d.cfg.lr_img).double(),
+           "texts": ((st0.text_syn - st.text_syn) / d.cfg.lr_txt).double(),
+           "lr_img": m["syn_lr_img_grad"].double(),
+           "lr_txt": m["syn_lr_txt_grad"].double()}
+    return res, dict(gc.LAUNCHES)
+
+
+def rel_errors(a, b) -> dict:
+    """The loss's relative error and each meta-gradient's relative error
+    norm of ``a`` against ``b`` (whose meta-gradients must not be 0)."""
+    r = {"loss_a": a["loss"], "loss_b": b["loss"],
+         "loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"])}
+    for k in META_GRADS:
+        if not b[k].norm() > 0:
+            raise AssertionError(f"meta-gradient {k} is zero")
+        r[f"{k}_grad_rel_err"] = float((a[k] - b[k]).norm() / b[k].norm())
+    return r
+
+
 def compare_f32(gc, cfg, mb: int = 25, syn_steps: int = 2):
     """Phase 4: one float32 outer step with the kernels against the same
     step on F.conv2d, at full width and 224^2 (mini-batch and syn_steps
@@ -574,34 +659,15 @@ def compare_f32(gc, cfg, mb: int = 25, syn_steps: int = 2):
     for gconv in (True, False):
         c = cfg.replace(syn_steps=syn_steps, mini_batch_size=mb,
                         inner_dtype="float32", pallas_gconv=gconv)
-        d, traj_img, traj_txt, rng = make_distiller(c)
-        st0 = d.state
-        gc.reset_launches()
-        m = d.step_traj(traj_img, traj_txt, 0, d.sample_indices(rng))
-        torch.cuda.synchronize()
+        res[gconv], n = meta_grads(gc, *make_distiller(c))
         if gconv:
-            launches = dict(gc.LAUNCHES)
-        st = d.state
-        # first step: trace = g, update = -lr * g
-        res[gconv] = {
-            "loss": float(m["grand_loss"]),
-            "pixels": (st0.image_syn - st.image_syn) / c.lr_img,
-            "texts": (st0.text_syn - st.text_syn) / c.lr_txt,
-            "lr_img": m["syn_lr_img_grad"], "lr_txt": m["syn_lr_txt_grad"]}
-        del d, traj_img, traj_txt, st0, st, m
+            launches = n
         torch.cuda.empty_cache()
-    a, b = res[True], res[False]
     out = {"mini_batch": mb, "syn_steps": syn_steps, "launches": launches,
-           "loss_kernel": a["loss"], "loss_plain": b["loss"],
-           "loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"])}
-    if not out["loss_rel_err"] <= 1e-3:
-        raise AssertionError(f"f32 grand_loss differs: {out}")
-    for k in ("pixels", "texts", "lr_img", "lr_txt"):
-        ref = b[k].double()
-        rel = float((a[k].double() - ref).norm() / ref.norm())
-        out[f"{k}_grad_rel_err"] = rel
-        if not (ref.norm() > 0 and rel <= 1e-2):
-            raise AssertionError(f"f32 meta-gradient {k} differs: {out}")
+           **rel_errors(res[True], res[False])}
+    if not (out["loss_rel_err"] <= 1e-3
+            and all(out[f"{k}_grad_rel_err"] <= 1e-2 for k in META_GRADS)):
+        raise AssertionError(f"f32 step differs: {out}")
     print("f32 kernels vs F.conv2d: " + json.dumps(out), flush=True)
     want = site_launches(cfg.image_encoder, "float32", 8 * syn_steps,
                          4 * syn_steps)
@@ -1524,7 +1590,7 @@ def zoo_path(gc, Config, syn, phase3_steps_per_s: float):
 # its text tower, on phase 9's 256 pairs
 CLIP_ZOO = {"clip": dict(text_encoder="clip"),
             "convnext": dict(text_encoder="bert")}
-S2D_PAIRS = 3        # (c): alternating pairs of timed runs
+S2D_PAIRS = 1        # (c): alternating pairs of timed runs
 S2D_STEPS = 2        # (c): outer steps per timed run
 
 
@@ -1608,45 +1674,26 @@ def s2d_compare(gc, Config, mb: int = 25, syn_steps: int = 2):
         d, traj_img, traj_txt, rng = make_distiller(c)
         if d.model.image_encoder.model.stem.s2d is not on:
             raise AssertionError(f"stem_s2d={on} built the other stem")
-        st0 = d.state
-        gc.reset_launches()
-        m = d.step_traj(traj_img, traj_txt, 0, d.sample_indices(rng))
-        torch.cuda.synchronize()
-        launches[(dtype, on)] = dict(gc.LAUNCHES)
-        st = d.state
-        key = (dtype, on, "rerun" if (dtype, on) in res else "")
-        res[key[:2] if not key[2] else key] = {
-            "loss": float(m["grand_loss"]),
-            "pixels": ((st0.image_syn - st.image_syn) / c.lr_img).double(),
-            "texts": ((st0.text_syn - st.text_syn) / c.lr_txt).double(),
-            "lr_img": m["syn_lr_img_grad"].double(),
-            "lr_txt": m["syn_lr_txt_grad"].double()}
-        del d, traj_img, traj_txt, st0, st, m
+        key = (dtype, on, "rerun") if (dtype, on) in res else (dtype, on)
+        res[key], launches[(dtype, on)] = meta_grads(gc, d, traj_img,
+                                                     traj_txt, rng)
+        del d, traj_img, traj_txt
         torch.cuda.empty_cache()
-
-    def errors(a, b):
-        r = {"loss_a": a["loss"], "loss_b": b["loss"],
-             "loss_rel_err": abs(a["loss"] - b["loss"]) / abs(b["loss"])}
-        for k in ("pixels", "texts", "lr_img", "lr_txt"):
-            r[f"{k}_grad_rel_err"] = float((a[k] - b[k]).norm()
-                                           / b[k].norm())
-        return r
 
     out = {}
     for dtype, tol in S2D_GRAD_TOL.items():
         a, b = res[(dtype, True)], res[(dtype, False)]
-        r = {**errors(a, b), "grad_tol": tol}
+        r = {**rel_errors(a, b), "grad_tol": tol}
         out[dtype] = r
         print(f"phase 10 s2d {dtype} step vs the plain stem (mb={mb}, "
               f"syn_steps={syn_steps}): " + json.dumps(r), flush=True)
         if not (r["loss_rel_err"] <= 1e-5 and all(
-                b[k].norm() > 0 and r[f"{k}_grad_rel_err"] <= tol
-                for k in ("pixels", "texts", "lr_img", "lr_txt"))):
+                r[f"{k}_grad_rel_err"] <= tol for k in META_GRADS)):
             raise AssertionError(f"the s2d stem's {dtype} step differs: {r}")
-    out["plain_rerun"] = errors(res[("float32", False, "rerun")],
-                                res[("float32", False)])
-    out["float32_vs_float64"] = errors(res[("float32", False)],
-                                       res[("float64", False)])
+    out["plain_rerun"] = rel_errors(res[("float32", False, "rerun")],
+                                    res[("float32", False)])
+    out["float32_vs_float64"] = rel_errors(res[("float32", False)],
+                                           res[("float64", False)])
     print("phase 10 float32 plain step vs itself run again: "
           + json.dumps(out["plain_rerun"]) + "; vs the float64 step: "
           + json.dumps(out["float32_vs_float64"]), flush=True)
@@ -1806,8 +1853,258 @@ def phase10(gc, Config):
     return out, launches
 
 
+# phase 11: the meta-backward's orientations (Config.fr_bwd, fused_jvp)
+FR_MODES = {"rof_fused": dict(fr_bwd="rof", fused_jvp=True),
+            "rof_plain": dict(fr_bwd="rof", fused_jvp=False),
+            "for": dict(fr_bwd="for")}
+FR_ROUNDS = 3        # (b): alternating rounds over the modes
+FR_STEPS = 2         # (b): timed outer steps per mode and round
+FR_F64_TOL = 1e-9    # (a): relative error norms in float64
+# cuDNN kernels of the stems' second-order convs (PERF.md section 5)
+DOUBLE_BACKWARD_KERNELS = ("precomputed_convolve_sgemm",
+                           "implicit_convolve_sgemm")
+
+
+def rof_vs_ror(fn, *xs):
+    """(grad-of-jvp, reverse-over-reverse) gradients of the directional
+    derivative of the scalar ``fn`` at ``xs`` in a seeded direction."""
+    import torch.autograd.forward_ad as fwAD
+
+    gen = torch.Generator(device=xs[0].device).manual_seed(3)
+    vs = [torch.randn(x.shape, generator=gen, device=x.device,
+                      dtype=x.dtype) for x in xs]
+    a = [x.clone().requires_grad_() for x in xs]
+    with fwAD.dual_level():
+        h = fwAD.unpack_dual(
+            fn(*[fwAD.make_dual(t, v) for t, v in zip(a, vs)])).tangent
+    rof = torch.autograd.grad(h, a, allow_unused=True)
+    b = [x.clone().requires_grad_() for x in xs]
+    g = torch.autograd.grad(fn(*b), b, create_graph=True, allow_unused=True)
+    ror = torch.autograd.grad(sum((gi * v).sum() for gi, v in zip(g, vs)
+                                  if gi is not None), b, allow_unused=True)
+    return rof, ror
+
+
+def forward_ad_forms(dev: str = "cuda"):
+    """Phase 11 (a), first: the ops the grad-of-jvp meta-backward must not
+    reach on their fused forms, on this card's torch in float64:
+    ``F.layer_norm`` (wrong second derivatives without an error on the
+    build host's torch), ``log_softmax`` (raises there) and ``F.group_norm``
+    on a channels-last input (raises there), each beside the port's form,
+    which must match reverse-over-reverse to 1e-12 of the largest value.
+    -> {op: relative error or the error's text}."""
+    from multimodal_dataset_distillation_tpu_torch.models.layers import (
+        GroupNorm, layer_norm)
+    from multimodal_dataset_distillation_tpu_torch.ops.contrastive import (
+        log_softmax)
+
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(3, 5, 6, device=dev, dtype=f64, generator=gen)
+    xc = torch.randn(2, 6, 3, 3, device=dev, dtype=f64,
+                     generator=gen).contiguous(
+                         memory_format=torch.channels_last)
+    wb = [torch.randn(6, device=dev, dtype=f64, generator=gen)
+          for _ in range(2)]
+    ln = torch.nn.LayerNorm(6, eps=1e-5)
+    gn = GroupNorm(2, 6, eps=1e-6).to(dev, f64)
+
+    class LN:   # a LayerNorm's settings with other weight and bias
+        def __init__(self, w, b):
+            self.normalized_shape, self.eps = ln.normalized_shape, ln.eps
+            self.weight, self.bias = w, b
+
+    def s(y):
+        return torch.sin(y).sum()
+
+    ln_in, gn_in = [x] + wb, [xc] + wb
+    cases = {   # name: (scalar function, its inputs, the port's form)
+        "F.layer_norm": (lambda t, w, b: s(F.layer_norm(t, (6,), w, b,
+                                                        1e-5)), ln_in, False),
+        "port layer_norm": (lambda t, w, b: s(layer_norm(t, LN(w, b))),
+                            ln_in, True),
+        "Tensor.log_softmax": (lambda t: s(t.log_softmax(-1)), [x], False),
+        "port log_softmax": (lambda t: s(log_softmax(t, -1)), [x], True),
+        "F.group_norm channels-last": (lambda t, w, b: s(F.group_norm(
+            t, 2, w, b, 1e-6)), gn_in, False),
+        "port GroupNorm channels-last": (
+            lambda t, w, b: s(torch.func.functional_call(
+                gn, {"weight": w, "bias": b}, (t,))), gn_in, True),
+    }
+    out = {}
+    for name, (fn, xs, port) in cases.items():
+        try:
+            rof, ror = rof_vs_ror(fn, *xs)
+            out[name] = max(float((a - b).abs().max() / b.abs().max())
+                            for a, b in zip(rof, ror) if b is not None)
+        except RuntimeError as e:
+            out[name] = f"raises: {str(e)[:80]}"
+        if port and not (isinstance(out[name], float)
+                         and out[name] <= 1e-12):
+            raise AssertionError(f"{name} under grad-of-jvp: {out[name]}")
+    print("phase 11 forward-AD forms vs reverse-over-reverse (float64, "
+          "relative): " + json.dumps(out), flush=True)
+    return out
+
+
+def fr_compare(gc, Config, size: int = 64, mb: int = 4, syn_steps: int = 2):
+    """Phase 11 (a): NFNet-L0 (full width) at ``size``^2 in float64 on
+    ``F.conv2d`` throughout (the kernels take bf16 and float32; check_hvp
+    holds their forward-mode rules): each mode of :data:`FR_MODES` against
+    ``hvp_mode="reverse"`` and against each other, loss and every
+    meta-gradient within :data:`FR_F64_TOL` relative; no kernel launched.
+    Then the float32 step at phase 4's size with the kernels in each mode
+    against the same mode on ``F.conv2d`` (TF32 off) at phase 4's
+    tolerances, launching phase 4's counts (:func:`compare_f32`; the
+    default mode's is phase 4 itself)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    forms = forward_ad_forms()
+    res = {}
+    zero = dict.fromkeys(KERNELS, 0)
+    for mode in ("reverse", *FR_MODES):
+        kw = FR_MODES.get(mode, {"hvp_mode": "reverse"})
+        c = main_cfg(Config, image_size=size, mini_batch_size=mb,
+                     syn_steps=syn_steps, inner_dtype="float64",
+                     pallas_gconv=False, **kw)
+        res[mode], launches = meta_grads(gc, *make_distiller(c))
+        if launches != zero:
+            raise AssertionError(f"float64 {mode} step launched {launches}")
+        torch.cuda.empty_cache()
+    out = {"forms": forms, "float64": {}}
+    names = list(res)
+    for i, a in enumerate(names[1:], 1):
+        for b in names[:i]:
+            r = rel_errors(res[a], res[b])
+            out["float64"][f"{a}_vs_{b}"] = r
+            if not all(v <= FR_F64_TOL for k, v in r.items()
+                       if k.endswith("rel_err")):
+                raise AssertionError(f"float64 {a} vs {b}: {r}")
+    print(f"phase 11 (a) float64 NFNet-L0 at {size}^2 (mb={mb}, syn_steps="
+          f"{syn_steps}), modes against each other and the reverse unroll: "
+          + json.dumps(out["float64"]), flush=True)
+    out["float32"] = {}
+    for mode, kw in FR_MODES.items():
+        if mode != "rof_fused":   # phase 4 is the default mode's
+            out["float32"][mode] = compare_f32(gc, main_cfg(Config, **kw))
+            torch.cuda.empty_cache()
+    return out
+
+
+def profile_step(step) -> dict:
+    """Run ``step()`` under ``torch.profiler`` (host and card) -> its
+    device ms and kernel launches in all, the device ms of each of
+    :data:`DOUBLE_BACKWARD_KERNELS` and the count of
+    ``aten::_convolution_double_backward`` calls.  Reads the profiler's
+    raw event list: building its Python event tree takes ~70 us per
+    event, minutes for the ~10^6 events of a headline step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, calls = [], 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            kernels.append((e.name(), e.duration_ns() / 1e6))
+        elif e.name() == "aten::_convolution_double_backward":
+            calls += 1
+    return {"profiled_device_ms": sum(t for _, t in kernels),
+            "profiled_launches": len(kernels),
+            "double_backward_calls": calls,
+            **{f"{k}_ms": sum(t for n, t in kernels if k in n)
+               for k in DOUBLE_BACKWARD_KERNELS}}
+
+
+def fr_ab(gc, Config, rounds: int = FR_ROUNDS, steps: int = FR_STEPS):
+    """Phase 11 (b) and (c): the bf16 headline step (phase 3's) in each
+    mode of :data:`FR_MODES`, one warm-up step each, then ``rounds``
+    rounds over the modes (rotated each round) of ``steps`` timed outer
+    steps; host clock between synchronizes, peaks from a reset before each
+    timed run.  Launch counters zeroed before and read after each timed
+    run: phase 3's per step exactly.  Then one profiled step per mode
+    (``torch.profiler``): device ms of the stems' double-backward cuDNN
+    kernels (:data:`DOUBLE_BACKWARD_KERNELS`), the count of
+    ``aten::_convolution_double_backward`` calls, device ms and launches
+    in all.  -> medians, ranges, peaks, per-step times, profiles."""
+    torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for mode, kw in FR_MODES.items():
+        d, traj_img, traj_txt, rng = make_distiller(main_cfg(Config, **kw))
+        torch.cuda.synchronize()
+        loss = float(d.step_traj(traj_img, traj_txt, 0,
+                                 d.sample_indices(rng))["grand_loss"])
+        runs[mode] = {"d": d, "traj": (traj_img, traj_txt), "rng": rng,
+                      "step_s": [], "losses": [loss], "peaks_gib": []}
+    want = {k: MAIN_PATH_PER_STEP.get(k, 0) * steps for k in KERNELS}
+    order = list(FR_MODES)
+    for i in range(rounds):
+        for mode in order[i % len(order):] + order[:i % len(order)]:
+            r = runs[mode]
+            gc.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                m = r["d"].step_traj(*r["traj"], 0,
+                                     r["d"].sample_indices(r["rng"]))
+                r["losses"].append(float(m["grand_loss"]))
+                torch.cuda.synchronize()
+                r["step_s"].append(time.perf_counter() - t)
+            r["peaks_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+            if dict(gc.LAUNCHES) != want:
+                raise AssertionError(f"{mode}: launches {gc.LAUNCHES}, "
+                                     f"expected phase 3's {want}")
+    out = {"rounds": rounds, "steps_per_run": steps,
+           "launches_per_run": want}
+    for mode, r in runs.items():
+        if not all(math.isfinite(v) for v in r["losses"]):
+            raise AssertionError(f"{mode}: grand_loss {r['losses']}")
+        prof = profile_step(lambda: r["d"].step_traj(
+            *r["traj"], 0, r["d"].sample_indices(r["rng"])))
+        out[mode] = {
+            "median_step_s": float(np.median(r["step_s"])),
+            "min_step_s": min(r["step_s"]), "max_step_s": max(r["step_s"]),
+            "step_s": r["step_s"], "peak_gib": max(r["peaks_gib"]),
+            "grand_loss": r["losses"], **prof}
+    del runs
+    torch.cuda.empty_cache()
+    for mode in FR_MODES:
+        o = out[mode]
+        print(f"phase 11 (b)/(c) {mode}: median {o['median_step_s']:.4f} s "
+              f"({o['min_step_s']:.4f}-{o['max_step_s']:.4f}), peak "
+              f"{o['peak_gib']:.2f} GiB; profiled step: device "
+              f"{o['profiled_device_ms']:.1f} ms, "
+              f"{o['profiled_launches']} launches, "
+              + ", ".join(f"{k} {o[k + '_ms']:.1f} ms"
+                          for k in DOUBLE_BACKWARD_KERNELS)
+              + f", {o['double_backward_calls']} "
+                f"_convolution_double_backward calls", flush=True)
+    print("phase 11 (b)/(c): " + json.dumps(out), flush=True)
+    return out
+
+
+def phase11(gc, Config):
+    """Phase 11: (a) the orientations' agreement, then (b)/(c) their times
+    and profiles on the headline step.  -> the summary and its launch
+    counts per run."""
+    out = {"compare": fr_compare(gc, Config)}
+    torch.cuda.empty_cache()
+    out["ab"] = fr_ab(gc, Config)
+    launches = {f"f32_{mode}": r["launches"]
+                for mode, r in out["compare"]["float32"].items()}
+    launches["headline_run"] = out["ab"]["launches_per_run"]
+    print(f"card: {card_line()}", flush=True)
+    return out, launches
+
+
 def kernel_entries(rows, launches, launches_eval, launches_expert,
-                   launches_cli, regnet_rows, launches_zoo, launches_p10):
+                   launches_cli, regnet_rows, launches_zoo, launches_p10,
+                   launches_p11):
     """One entry per kernel, summed over one tower pass (mb=100), in the
     dtype of the paths that launch it.  The tensor-core kernels at NFNet-L0's
     19 sites: bf16 for the bf16 ones, float32 for the TF32 ones (phases 4-8;
@@ -1825,7 +2122,9 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
     path); ``launches_expert``:
     phase 7's per run of the buffer CLI; ``launches_cli``: phase 8's (the
     distill CLI, all routes); ``launches_zoo``: phase 9's per run;
-    ``launches_phase10``: phase 10's per run (the s2d A/B per timed run).  Each
+    ``launches_phase10``: phase 10's per run (the s2d A/B per timed run);
+    ``launches_phase11``: phase 11's per run (the float32 steps of the
+    modes other than phase 4's, and each mode's timed headline run).  Each
     entry, and its ``nfnet_shapes``, names the tower whose shapes its
     numbers were taken at (``tower``)."""
     def measures(name, kind, route, sfx, rs):
@@ -1896,7 +2195,9 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
             "launches_zoo": {run: n[name]
                              for run, n in launches_zoo.items()},
             "launches_phase10": {run: n[name]
-                                 for run, n in launches_p10.items()}})
+                                 for run, n in launches_p10.items()},
+            "launches_phase11": {run: n[name]
+                                 for run, n in launches_p11.items()}})
         entries.append(entry)
     return entries
 
@@ -1937,19 +2238,27 @@ def main() -> int:
                 raise AssertionError(f"{mirror.__name__}({h}) differs from "
                                      f"gconv3x3_tf32.cu")
 
+    t_lap = [time.perf_counter()]
+
+    def lap(phase: str) -> None:   # wall time per phase, for the budget
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
+        torch.cuda.empty_cache()
+
     rows = check_kernels(gc)
-    torch.cuda.empty_cache()
     check_hvp(gc)
+    lap("2")
     torch.backends.cudnn.allow_tf32 = True   # the library defaults again
     cfg = main_cfg(Config)
     path, syn = main_path(gc, cfg)
-    torch.cuda.empty_cache()
+    lap("3")
     f32 = compare_f32(gc, cfg)
-    torch.cuda.empty_cache()
+    lap("4")
     ev = eval_path(gc, Config, syn)
-    torch.cuda.empty_cache()
+    lap("5")
     compare_eval(gc, Config, syn)
-    torch.cuda.empty_cache()
+    lap("6")
     experts = {}
     with tempfile.TemporaryDirectory() as tmp:
         for run in EXPERT_RUNS:   # (a) alone: phase 8 reads its buffers
@@ -1959,13 +2268,16 @@ def main() -> int:
                 experts[run] = expert_path(gc, Config, run)
             torch.cuda.empty_cache()
         compare_expert(gc, Config)
-        torch.cuda.empty_cache()
+        lap("7")
         with contextlib.chdir(os.path.join(tmp, "a")):
             cli = distill_cli_path(gc, Config, path["steps_per_s"])
-    torch.cuda.empty_cache()
+    lap("8")
     regnet_rows, zoo = zoo_path(gc, Config, syn, path["steps_per_s"])
-    torch.cuda.empty_cache()
+    lap("9")
     _, launches_p10 = phase10(gc, Config)
+    lap("10")
+    _, launches_p11 = phase11(gc, Config)
+    lap("11")
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
@@ -1980,7 +2292,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_entries(
         rows, launches, ev["launches"],
         {run: e["launches"] for run, e in experts.items()},
-        cli["launches"], regnet_rows, launches_zoo, launches_p10)}),
+        cli["launches"], regnet_rows, launches_zoo, launches_p10,
+        launches_p11)}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

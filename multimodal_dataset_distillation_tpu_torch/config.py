@@ -8,15 +8,18 @@ parsed as strings, store-true switches, ``--dsa True|False``, and unknown
 flags warned about and ignored.  ``device`` is a runtime field, not a flag.
 
 Fields the distillation step of this package reads: ``inner_dtype``,
-``inner_scale``, ``hvp_mode``, ``fr_resid_dtype``, ``pallas_gconv``,
+``inner_scale``, ``hvp_mode``, ``fr_bwd``, ``fused_jvp`` (with the
+``MDD_FUSED_JVP`` override), ``fr_resid_dtype``, ``pallas_gconv``,
 ``max_grad_norm``, ``image_only``, ``text_only``, the learning rates,
 ``syn_steps``, ``mini_batch_size``, ``expert_epochs``, ``seed``.
 
 XLA scheduling knobs with no counterpart here, kept for the shared surface
 and ignored: ``scan_unroll``, ``carry_mode``, ``remat_inner``,
-``remat_group``, ``remat_policy``, ``remat_prevent_cse``, ``fr_remat``,
-``fr_bwd``, ``fused_jvp``.  The forward-HVP inner step keeps one inner
-step's graph alive at a time, which is what those knobs traded for on XLA.
+``remat_group``, ``remat_policy``, ``remat_prevent_cse``, ``fr_remat``.
+The forward-HVP inner step keeps one inner step's graph alive at a time,
+which is what the remat knobs traded for on XLA; ``fr_remat`` is a
+``jax.checkpoint`` policy inside that step, bit-exact, that only
+schedules XLA's recompute against its memory.
 """
 
 from __future__ import annotations
@@ -139,13 +142,15 @@ class Config:
     remat_prevent_cse: bool = True        # ignored
     scan_unroll: int = 2                  # ignored (XLA scan unroll)
     # meta-backward through each inner SGD step: "forward" = one autograd
-    # Function per inner step (saved theta, g; reverse-over-reverse
-    # recompute in its backward); "reverse" = create_graph=True unroll
+    # Function per inner step (saved theta, g; second derivatives in its
+    # backward, oriented by fr_bwd); "reverse" = create_graph=True unroll
     hvp_mode: str = "forward"
     # "inner" stores the Function's theta and g residuals in inner_dtype
     fr_resid_dtype: str = "carry"         # carry | inner
-    fr_remat: str = "none"                # ignored
-    fr_bwd: str = "rof"                   # ignored
+    fr_remat: str = "none"                # ignored (XLA remat policy)
+    # the Function's backward: "rof" = grad of the directional derivative
+    # (forward-mode jvp, reverse pass over it); "for" = jvp of the gradient
+    fr_bwd: str = "rof"                   # rof | for
     carry_mode: str = "flat"              # ignored
     parallel_eval: bool = True
     shard_syn: bool = True
@@ -153,7 +158,9 @@ class Config:
     # (ops/gconv.py); off = F.conv2d
     pallas_gconv: bool = False
     stem_s2d: bool = False
-    fused_jvp: bool = True                # ignored
+    # merged-tangent conv in the "rof" jvp (ops/fused_jvp.py); env
+    # MDD_FUSED_JVP=0/1 wins
+    fused_jvp: bool = True
     mesh_shape: Tuple[int, ...] = ()
     mesh_axes: Tuple[str, ...] = ("data",)
     text_encoder_config: str = "base"     # base | tiny

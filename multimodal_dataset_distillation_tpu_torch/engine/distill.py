@@ -21,10 +21,15 @@ Meta-backward through each inner step ``theta' = theta - lr * g``:
 * ``hvp_mode="forward"``: :class:`_FrCore`, one ``autograd.Function`` per
   inner step (the JAX ``fr_core`` custom VJP, ``:353-438`` there).  Its
   forward takes ``g`` without keeping a graph and saves
-  ``(theta, g, x, y, lr, seeds)``; its backward recomputes the loss with
-  ``create_graph=True`` and differentiates ``<g, lr * ybar>`` once more, a
-  reverse-over-reverse form of the same second derivative JAX takes as
-  grad-of-jvp.  Only one inner step's graph is alive at a time.
+  ``(theta, g, x, y, lr, seeds)``; its backward recomputes the loss's
+  second derivatives in the direction ``v = lr * ybar`` in the
+  orientation ``fr_bwd`` names, as the JAX ``fr_core_bwd`` does
+  (:meth:`Distiller._second_order`): ``"rof"`` (the default) the gradient
+  of the directional derivative ``h = d/de closs(theta + e v)``, taken in
+  forward mode (``torch.autograd.forward_ad``) with the merged-tangent
+  conv under ``fused_jvp`` (:mod:`..ops.fused_jvp`); ``"for"`` the jvp of
+  ``grad(closs)`` (``torch.func``).  Only one inner step's graph is alive
+  at a time.
 * ``hvp_mode="reverse"``: the plain ``create_graph=True`` unroll (reference
   semantics, every step's graph kept).  The oracle the Function is held
   against; at full size it is not expected to fit.
@@ -45,12 +50,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch import nn
 from torch.func import functional_call
 
 from ..config import Config
 from ..models.clip_model import VLBiEncoder
 from ..models.layers import BatchNorm
+from ..ops import fused_jvp
 from ..ops.contrastive import RAW_LOG_SCALE, _symmetric_ce, l2_normalize
 from ..utils.flat import FlatParams
 from .buffer_io import load_buffer
@@ -90,21 +97,12 @@ class _FrCore(torch.autograd.Function):
         d = ctx.d
         lr_i, lr_t, x, y, thi, tht, gi, gt = ctx.saved_tensors
         cdt = ybi.dtype  # carry dtype; theta stored in inner dtype is exact
-        with torch.enable_grad():
-            a = thi.detach().to(cdt).requires_grad_()
-            b = tht.detach().to(cdt).requires_grad_()
-            xx = x.detach().requires_grad_()
-            yy = y.detach().requires_grad_()
-            lr = lr_i.detach().requires_grad_()
-            loss = d._closs(a, b, xx, yy, lr, ctx.seeds)
-            ga, gb = torch.autograd.grad(loss, (a, b), create_graph=True)
-            # h = <grad closs, v> at v = lr * ybar: its gradients are the
-            # Hessian action (theta) and the mixed terms (x, y, lr)
-            h = (torch.dot(ga, (lr_i * ybi).detach())
-                 + torch.dot(gb, (lr_t * ybt).detach()))
-            hs = torch.autograd.grad(h, (a, b, xx, yy, lr), allow_unused=True)
-        hgi, hgt, hx, hy, hlr = [torch.zeros_like(t) if g is None else g
-                                 for g, t in zip(hs, (a, b, xx, yy, lr))]
+        # the Hessian action (theta) and the mixed terms (x, y, lr) of the
+        # inner loss in the direction v = lr * ybar
+        hgi, hgt, hx, hy, hlr = d._second_order(
+            thi.detach().to(cdt), tht.detach().to(cdt), x.detach(),
+            y.detach(), lr_i.detach(), (lr_i * ybi).detach(),
+            (lr_t * ybt).detach(), ctx.seeds)
         dlr_i = -torch.dot(gi.to(cdt), ybi) - hlr
         dlr_t = -torch.dot(gt.to(cdt), ybt)
         return (None, dlr_i, dlr_t, -hx, -hy, ybi - hgi, ybt - hgt, None)
@@ -154,6 +152,10 @@ class Distiller:
         self._img = FlatParams(model.image_encoder)
         self._txt = FlatParams(model.text_projection)
         self._use_fr = cfg.hvp_mode == "forward"
+        if cfg.fr_bwd not in ("rof", "for"):
+            raise ValueError(f"fr_bwd={cfg.fr_bwd!r}: expected 'rof' "
+                             f"(grad of jvp) or 'for' (jvp of grad)")
+        self._fused_jvp = fused_jvp.resolve(cfg) and cfg.fr_bwd == "rof"
         self._resid_dt = (self.inner_dtype
                           if cfg.fr_resid_dtype == "inner"
                           and self.inner_dtype != torch.float64 else None)
@@ -211,6 +213,36 @@ class Distiller:
         if self._mask is None:
             return _symmetric_ce(logits)
         return _symmetric_ce(logits, self._mask, self._inner_mb)
+
+    def _second_order(self, thi, tht, x, y, lr_i, vi, vt, seeds):
+        """-> (hgi, hgt, hx, hy, hlr): the gradients over (thi, tht, x, y,
+        lr_i) of h = d/de closs(thi + e vi, tht + e vt), the directional
+        derivative of the inner loss, as the JAX ``fr_core_bwd`` takes them.
+
+        ``fr_bwd="rof"``: the reverse pass over h, with h taken in forward
+        mode on dual tensors whose tangents sit on the two thetas only (x,
+        y and lr enter as plain leaves), WSConv on the merged-tangent conv
+        when ``fused_jvp`` is on.  ``"for"``: the jvp, in the direction
+        (vi, vt), of the gradient over all five; x, y and lr stay inside
+        the jvp as constants, which is JAX's zero tangents on them without
+        the zero work."""
+        if self.cfg.fr_bwd == "for":
+            def grads(a, b):
+                return torch.func.grad(
+                    lambda a_, b_, x_, y_, l_: self._closs(
+                        a_, b_, x_, y_, l_, seeds),
+                    argnums=(0, 1, 2, 3, 4))(a, b, x, y, lr_i)
+
+            return torch.func.jvp(grads, (thi, tht), (vi, vt))[1]
+        leaves = [t.requires_grad_() for t in (thi, tht, x, y, lr_i)]
+        with torch.enable_grad(), fwAD.dual_level(), \
+                fused_jvp.activate(self._fused_jvp):
+            loss = self._closs(fwAD.make_dual(thi, vi),
+                               fwAD.make_dual(tht, vt), *leaves[2:], seeds)
+            h = fwAD.unpack_dual(loss).tangent
+        hs = torch.autograd.grad(h, leaves, allow_unused=True)
+        return [torch.zeros_like(t) if g is None else g
+                for g, t in zip(hs, leaves)]
 
     def _inner_step(self, lr_i, lr_t, image_syn, text_syn, thi, tht, idx,
                     seeds, create_graph: bool):

@@ -34,8 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import dense, trunc_normal_fan_in
-from .vit import layer_norm
+from ..ops.contrastive import softmax
+from .layers import dense, layer_norm, trunc_normal_fan_in
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +84,7 @@ class ClipAttention(nn.Module):
         scores = (q @ k.transpose(-2, -1)) * (c // h) ** -0.5
         if mask is not None:
             scores = scores + mask
-        out = torch.softmax(scores, dim=-1) @ v
+        out = softmax(scores, -1) @ v
         return dense(out.transpose(1, 2).reshape(b, n, c), self.out_proj)
 
 

@@ -31,8 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .clip_text import ClipBlock
-from .layers import promoted
-from .vit import layer_norm
+from .layers import layer_norm, promoted
 
 
 @dataclasses.dataclass(frozen=True)

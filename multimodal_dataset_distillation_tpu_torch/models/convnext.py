@@ -32,8 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ChannelLayerNorm, dense, promoted, tf_same_pad
-from .vit import layer_norm
+from .layers import ChannelLayerNorm, dense, layer_norm, promoted, tf_same_pad
 
 
 def conv(x: torch.Tensor, layer: nn.Conv2d, padding: int = 0) -> torch.Tensor:

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import fused_jvp
 from ..ops import s2d as _s2d
 from ..ops.gconv import gconv3x3
 
@@ -95,6 +96,29 @@ def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return F.linear(*promoted(x, layer.weight, layer.bias))
 
 
+def _layer_norm(x: torch.Tensor, shape, w: torch.Tensor, b: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    """``F.layer_norm(x, shape, w, b, eps)``, unless a forward-mode tangent
+    rides on an operand: then flax's formula in plain ops (statistics in
+    at least float32, variance ``E[x^2] - E[x]^2`` floored at 0), in
+    ``x``'s dtype.  The reverse pass over ``F.layer_norm``'s forward-mode
+    rule gives wrong second derivatives without an error (1.6e-1 relative
+    in float64), so the grad-of-jvp meta-backward must not reach it."""
+    if not any(fused_jvp.has_tangent(t) for t in (x, w, b)):
+        return F.layer_norm(x, shape, w, b, eps)
+    dims = tuple(range(-len(shape), 0))
+    xs = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xs.mean(dims, keepdim=True)
+    var = ((xs * xs).mean(dims, keepdim=True) - mean * mean).clamp_min(0)
+    return ((xs - mean) * (torch.rsqrt(var + eps) * w) + b).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
+    """``layer(x)`` in the promoted dtype (flax ``nn.LayerNorm``)."""
+    x, w, b = promoted(x, layer.weight, layer.bias)
+    return _layer_norm(x, layer.normalized_shape, w, b, layer.eps)
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` (momentum 0.99, eps 1e-5) on NCHW.
 
@@ -137,10 +161,14 @@ class BatchNorm(nn.Module):
 
 class GroupNorm(nn.GroupNorm):
     """``nn.GroupNorm`` with the towers' norm signature: ``forward(x,
-    train)``, ``train`` unread (the norm has no running state)."""
+    train)``, ``train`` unread (the norm has no running state).  The input
+    goes in contiguous: ``F.group_norm``'s forward-mode rule fails on a
+    channels-last tangent (under ``torch.autograd.forward_ad`` and
+    ``torch.func.jvp`` alike), and on the card the op makes that copy
+    itself."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return super().forward(x)
+        return super().forward(x.contiguous())
 
 
 class ChannelLayerNorm(nn.LayerNorm):
@@ -149,8 +177,8 @@ class ChannelLayerNorm(nn.LayerNorm):
     ``train`` unread, as in :class:`GroupNorm`."""
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        y = F.layer_norm(x.permute(0, 2, 3, 1), self.normalized_shape,
-                         self.weight, self.bias, self.eps)
+        y = _layer_norm(x.permute(0, 2, 3, 1), self.normalized_shape,
+                        self.weight, self.bias, self.eps)
         return y.permute(0, 3, 1, 2)
 
 
@@ -171,11 +199,13 @@ class WSConv(nn.Module):
     """Scaled weight-standardized conv (timm ``ScaledStdConv2d``), TF-SAME.
 
     weight' = gain * (w - mean(w)) / sqrt((var(w) + eps) * fan_in) per
-    output channel, timm's eps placement.  With ``gconv`` set, a grouped
-    3x3 stride-1 conv runs through the hand-written kernel
-    (:func:`~..ops.gconv.gconv3x3`), as the JAX WSConv routes it to the
-    Pallas primitive under ``pallas_gconv``; every other conv is
-    ``F.conv2d``.
+    output channel, timm's eps placement.  The JAX WSConv's routing
+    order: the space-to-depth form (below); with ``gconv`` set, a grouped
+    3x3 stride-1 conv through the hand-written kernel
+    (:func:`~..ops.gconv.gconv3x3`, whose forward-mode rule is its own),
+    as the JAX WSConv routes it to the Pallas primitive under
+    ``pallas_gconv``; while :func:`..ops.fused_jvp.active`, the
+    merged-tangent conv; every other conv ``F.conv2d``.
 
     ``forward(x, s2d_in, s2d_out)`` with ``s2d_in > 1`` is the
     space-to-depth form (:mod:`..ops.s2d`, the JAX WSConv's ``s2d_in`` /
@@ -221,8 +251,9 @@ class WSConv(nn.Module):
             y = gconv3x3(x.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0),
                          self.groups).permute(0, 3, 1, 2)
         else:
-            y = F.conv2d(tf_same_pad(x, self.kernel_size, self.stride), w,
-                         stride=self.stride, groups=self.groups)
+            conv = fused_jvp.conv if fused_jvp.active() else F.conv2d
+            y = conv(tf_same_pad(x, self.kernel_size, self.stride), w,
+                     stride=self.stride, groups=self.groups)
         return y + self.bias.view(1, -1, 1, 1)
 
 

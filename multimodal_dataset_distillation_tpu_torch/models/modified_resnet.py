@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.contrastive import softmax
 from .layers import BatchNorm, tf_same_pad
 
 
@@ -90,8 +91,7 @@ class AttentionPool2d(nn.Module):
             return layer(tokens).view(b, n, h, c // h).transpose(1, 2)
 
         q, k, v = heads(self.q_proj), heads(self.k_proj), heads(self.v_proj)
-        probs = torch.softmax((q @ k.transpose(-2, -1)) * (c // h) ** -0.5,
-                              dim=-1)
+        probs = softmax((q @ k.transpose(-2, -1)) * (c // h) ** -0.5, -1)
         out = (probs @ v).transpose(1, 2).reshape(b, n, c)
         return self.c_proj(out[:, 0])
 

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import dropout
+from .layers import dropout, layer_norm
 
 
 class ProjectionHead(nn.Module):
@@ -32,4 +32,4 @@ class ProjectionHead(nn.Module):
         h = self.fc(F.gelu(projected))
         if train:
             h = dropout(h, self.rate, generator)
-        return self.layer_norm(h + projected)
+        return layer_norm(h + projected, self.layer_norm)

@@ -31,13 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import dense, promoted
-
-
-def layer_norm(x: torch.Tensor, layer: nn.LayerNorm) -> torch.Tensor:
-    """``layer(x)`` in the promoted dtype (flax ``nn.LayerNorm``)."""
-    x, w, b = promoted(x, layer.weight, layer.bias)
-    return F.layer_norm(x, layer.normalized_shape, w, b, layer.eps)
+from ..ops.contrastive import softmax
+from .layers import dense, layer_norm, promoted
 
 
 class PatchEmbed(nn.Module):
@@ -64,7 +59,7 @@ class Attention(nn.Module):
         qkv = dense(x, self.qkv).reshape(b, n, 3, h, c // h).float()
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         attn = (q @ k.transpose(-2, -1)) * (c // h) ** -0.5
-        out = torch.softmax(attn, dim=-1) @ v        # (B, H, N, hd) float32
+        out = softmax(attn, -1) @ v        # (B, H, N, hd) float32
         return dense(out.transpose(1, 2).reshape(b, n, c), self.proj)
 
 

@@ -18,6 +18,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from .fused_jvp import has_tangent
+
 FIXED_LOGIT_SCALE: float = 1.0 / 0.07
 RAW_LOG_SCALE: float = math.log(1.0 / 0.07)
 
@@ -32,6 +34,26 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     return x / norm
 
 
+def log_softmax(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t.log_softmax(dim)``, in plain ops while a forward-mode tangent
+    rides on ``t``: the reverse pass over the fused op's forward-mode rule
+    raises (an in-place write to a saved ``exp`` output).  The shift ``m``
+    is a constant, as the max is in the fused op."""
+    if not has_tangent(t):
+        return t.log_softmax(dim)
+    m = t.detach().amax(dim, keepdim=True)
+    return t - (m + (t - m).exp().sum(dim, keepdim=True).log())
+
+
+def softmax(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``torch.softmax(t, dim)``, in plain ops while a forward-mode tangent
+    rides on ``t`` (as :func:`log_softmax`)."""
+    if not has_tangent(t):
+        return torch.softmax(t, dim)
+    e = (t - t.detach().amax(dim, keepdim=True)).exp()
+    return e / e.sum(dim, keepdim=True)
+
+
 def _symmetric_ce(logits: torch.Tensor,
                   mask: Optional[torch.Tensor] = None,
                   n_valid: Optional[int] = None) -> torch.Tensor:
@@ -43,14 +65,16 @@ def _symmetric_ce(logits: torch.Tensor,
     0.  ``n_valid`` is the count of real rows (the mean's denominator).
     """
     if mask is None:
-        loss_i2t = -logits.log_softmax(1).diagonal().mean()
-        loss_t2i = -logits.log_softmax(0).diagonal().mean()
+        loss_i2t = -log_softmax(logits, 1).diagonal().mean()
+        loss_t2i = -log_softmax(logits, 0).diagonal().mean()
         return (loss_i2t + loss_t2i) / 2.0
     # finite (not -inf) so log_softmax gradients stay NaN-free
     big_neg = torch.finfo(logits.dtype).max * -0.5
     m = mask.to(logits.dtype)
-    diag_i2t = logits.masked_fill(m[None, :] <= 0, big_neg).log_softmax(1).diagonal()
-    diag_t2i = logits.masked_fill(m[:, None] <= 0, big_neg).log_softmax(0).diagonal()
+    diag_i2t = log_softmax(logits.masked_fill(m[None, :] <= 0, big_neg),
+                           1).diagonal()
+    diag_t2i = log_softmax(logits.masked_fill(m[:, None] <= 0, big_neg),
+                           0).diagonal()
     nv = float(n_valid) if n_valid is not None else m.sum()
     loss_i2t = -(diag_i2t * m).sum() / nv
     loss_t2i = -(diag_t2i * m).sum() / nv

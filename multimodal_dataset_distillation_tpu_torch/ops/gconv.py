@@ -33,9 +33,12 @@ Public layout is the JAX one: NHWC activations x HWIO weights.
   Each backward is built only from ``.apply`` calls of the two, as the
   ``defbilinear`` rules of the JAX primitive are: the transposes of the
   conv are the conv on :func:`rot_swap` of the weight (dgrad) and the
-  wgrad; the transposes of the wgrad are convs again.  So the op is
-  differentiable to any order, and the distillation meta-backward
-  (a second derivative) stays on the kernels.
+  wgrad; the transposes of the wgrad are convs again.  Each forward-mode
+  rule (``jvp``) is the bilinear product rule, again from ``.apply`` of
+  the same two.  So the op is differentiable to any order in either mode
+  (``torch.autograd.forward_ad`` dual tensors, ``torch.func.jvp`` /
+  ``grad``), and the distillation meta-backward (a second derivative, as
+  grad-of-jvp or jvp-of-grad) stays on the kernels.
 """
 
 from __future__ import annotations
@@ -582,50 +585,92 @@ def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor, groups: int,
 # autograd: every backward is built from .apply of the two Functions
 # ---------------------------------------------------------------------------
 
+def _sum(*terms: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The sum of the terms that are not None (None if all are)."""
+    terms = [t for t in terms if t is not None]
+    return sum(terms[1:], terms[0]) if terms else None
+
+
 class GConv3x3(torch.autograd.Function):
     """y = conv(x, w); bilinear in (x, w).  On the card the operands must
     be contiguous: the Function saves its inputs as given, so that its
-    backward stays differentiable."""
+    backward and its forward-mode rule stay differentiable.  A missing
+    cotangent or tangent comes in as None (``set_materialize_grads``), so
+    no kernel runs on a zero operand."""
 
     @staticmethod
-    def forward(ctx, x, w, groups):
-        ctx.save_for_backward(x, w)
-        ctx.groups = groups
+    def forward(x, w, groups):
         return gconv3x3_fwd(x, w, groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, groups = inputs
+        ctx.save_for_backward(x, w)
+        ctx.save_for_forward(x, w)
+        ctx.groups = groups
+        ctx.set_materialize_grads(False)
 
     @staticmethod
     def backward(ctx, ybar):
         x, w = ctx.saved_tensors
         g = ctx.groups
-        ybar = ybar.contiguous()
         dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = GConv3x3.apply(ybar, rot_swap(w, g), g)
-        if ctx.needs_input_grad[1]:
-            dw = GConv3x3Wgrad.apply(x, ybar, g)
+        if ybar is not None:
+            ybar = ybar.contiguous()
+            if ctx.needs_input_grad[0]:
+                dx = GConv3x3.apply(ybar, rot_swap(w, g), g)
+            if ctx.needs_input_grad[1]:
+                dw = GConv3x3Wgrad.apply(x, ybar, g)
         return dx, dw, None
+
+    @staticmethod
+    def jvp(ctx, xdot, wdot, _):
+        """ydot = conv(xdot, w) + conv(x, wdot)."""
+        x, w = ctx.saved_tensors
+        g = ctx.groups
+        return _sum(
+            None if xdot is None else GConv3x3.apply(xdot.contiguous(), w, g),
+            None if wdot is None else GConv3x3.apply(x, wdot.contiguous(), g))
 
 
 class GConv3x3Wgrad(torch.autograd.Function):
     """dW = wgrad(x, ybar); bilinear in (x, ybar)."""
 
     @staticmethod
-    def forward(ctx, x, ybar, groups):
-        ctx.save_for_backward(x, ybar)
-        ctx.groups = groups
+    def forward(x, ybar, groups):
         return gconv3x3_wgrad(x, ybar, groups)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ybar, groups = inputs
+        ctx.save_for_backward(x, ybar)
+        ctx.save_for_forward(x, ybar)
+        ctx.groups = groups
+        ctx.set_materialize_grads(False)
 
     @staticmethod
     def backward(ctx, dwbar):
         x, ybar = ctx.saved_tensors
         g = ctx.groups
-        dwbar = dwbar.contiguous()
         dx = dy = None
-        if ctx.needs_input_grad[0]:
-            dx = GConv3x3.apply(ybar, rot_swap(dwbar, g), g)
-        if ctx.needs_input_grad[1]:
-            dy = GConv3x3.apply(x, dwbar, g)
+        if dwbar is not None:
+            dwbar = dwbar.contiguous()
+            if ctx.needs_input_grad[0]:
+                dx = GConv3x3.apply(ybar, rot_swap(dwbar, g), g)
+            if ctx.needs_input_grad[1]:
+                dy = GConv3x3.apply(x, dwbar, g)
         return dx, dy, None
+
+    @staticmethod
+    def jvp(ctx, xdot, ybardot, _):
+        """dWdot = wgrad(xdot, ybar) + wgrad(x, ybardot)."""
+        x, ybar = ctx.saved_tensors
+        g = ctx.groups
+        return _sum(
+            None if xdot is None
+            else GConv3x3Wgrad.apply(xdot.contiguous(), ybar, g),
+            None if ybardot is None
+            else GConv3x3Wgrad.apply(x, ybardot.contiguous(), g))
 
 
 def gconv3x3(x: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:

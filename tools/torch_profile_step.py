@@ -4,14 +4,17 @@ on one NVIDIA card.
 
     python3 tools/torch_profile_step.py [--timed 3] [--steps 1] [--no-gconv]
                                         [--image_encoder nf_regnet]
-                                        [--stem_s2d]
+                                        [--stem_s2d] [--fr_bwd {rof,for}]
+                                        [--no-fused-jvp]
                                         [--trace build/step_trace.json]
 
 Builds the headline configuration of ``chip_smoke.py`` (NFNet-L0 at 224^2,
 or the tower ``--image_encoder`` names, nq=100, mb=100, syn_steps=8, bf16
 inner compute, forward-HVP, grouped-conv kernels on unless
-``--no-gconv``, the NF stems in space-to-depth form with ``--stem_s2d``),
-takes one warm-up outer step, times
+``--no-gconv``, the NF stems in space-to-depth form with ``--stem_s2d``,
+the meta-backward's orientation ``--fr_bwd`` (default ``rof``, grad of
+jvp, with the merged-tangent conv unless ``--no-fused-jvp``; ``for``,
+jvp of grad)), takes one warm-up outer step, times
 ``--timed`` outer steps without the profiler, then profiles ``--steps``
 outer steps with ``torch.profiler`` and prints:
 
@@ -24,7 +27,9 @@ outer steps with ``torch.profiler`` and prints:
   convolutions, GEMMs, elementwise/reduction/copy kernels);
 * the 25 kernels with the most device time;
 * the convolution ops with the most device time, by input shapes (which
-  layer a slow kernel belongs to).
+  layer a slow kernel belongs to);
+* the count of ``aten::_convolution_double_backward`` calls (PyTorch's
+  conv double backward) per step.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -73,6 +78,8 @@ def main() -> int:
     ap.add_argument("--no-gconv", action="store_true")
     ap.add_argument("--image_encoder", default="nfnet")
     ap.add_argument("--stem_s2d", action="store_true")
+    ap.add_argument("--fr_bwd", choices=("rof", "for"), default="rof")
+    ap.add_argument("--no-fused-jvp", action="store_true")
     ap.add_argument("--trace", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -80,7 +87,8 @@ def main() -> int:
         return 3
     cfg = chip_smoke.main_cfg(Config, image_encoder=args.image_encoder,
                               pallas_gconv=not args.no_gconv,
-                              stem_s2d=args.stem_s2d)
+                              stem_s2d=args.stem_s2d, fr_bwd=args.fr_bwd,
+                              fused_jvp=not args.no_fused_jvp)
     d, traj_img, traj_txt, rng = chip_smoke.make_distiller(cfg)
     float(d.step_traj(traj_img, traj_txt, 0,
                       d.sample_indices(rng))["grand_loss"])
@@ -120,12 +128,17 @@ def main() -> int:
         "image_encoder": cfg.image_encoder,
         "pallas_gconv": cfg.pallas_gconv,
         "stem_s2d": cfg.stem_s2d,
+        "fr_bwd": cfg.fr_bwd,
+        "fused_jvp": cfg.fused_jvp,
         "wall_ms_per_step": plain_wall * 1e3,
         "profiled_wall_ms_per_step": wall * 1e3,
         "device_busy_ms_per_step": busy,
         "idle_share": 1.0 - busy / (plain_wall * 1e3),
         "profiled_idle_share": 1.0 - busy / (wall * 1e3),
         "kernel_launches_per_step": len(kernels) / args.steps,
+        "conv_double_backward_calls_per_step": sum(
+            e.name == "aten::_convolution_double_backward"
+            for e in prof.events()) / args.steps,
         "ms_by_class": dict(by_class.most_common()),
     }
     print(json.dumps(out), flush=True)
