@@ -125,11 +125,25 @@ each of which raises on failure:
    ``F.conv2d`` in each mode against the others and ``hvp_mode="reverse"``
    (loss and meta-gradients 1e-9 relative error norm); the float32 step
    of phase 4 in the two other modes, held as phase 4.  (b) the bf16
-   headline step in 3 rounds over the modes of 2 timed steps after a
+   headline step in 1 round over the modes of 2 timed steps after a
    warm-up step each: medians, ranges, peaks, each run's launches phase
    3's exactly.  (c) one profiled step per mode: device ms and launches,
    the stems' double-backward cuDNN kernels' ms, the count of
    ``_convolution_double_backward`` calls.
+12. The quality rehearsal's path and the files of the JAX package.  (a)
+   ``tools/torch_make_fixtures.py roco`` at 256 rows (the ROCOv2 CSV, one
+   truncated JPEG, one missing file), then ``cli.buffer_roco`` (1 expert x
+   2 epochs), ``cli.distill`` (20 iterations, eval blocks of 2 students)
+   and ``cli.eval_distilled`` (2 students) with the recipe's flags
+   (ConvNet 32^2, BERT tiny): every ``Grand_Loss`` finite, every metric in
+   [0, 100], ``distilled_20.npz`` readable, no grouped-conv launch.  (b)
+   phase 3's expert segment as a ``.pt`` buffer with its 0-d skipinit
+   gains promoted to ``(1,)`` (the JAX writers before round 4), read back
+   through ``ExpertCycler`` equal to the segment, into one headline outer
+   step launching phase 3's per step.  (c) each DSA op
+   (``ops/diffaug.py``) and the ``'M'`` dispatcher at 100 x 224^2 on the
+   card against the CPU on the same draws, float32, 1e-4 relative error
+   norm, a finite pixel gradient.  (d) each part's wall seconds.
 
 Phase 2 also times the CUDA-core kernels and the TF32 kernels in float32
 (the dtype of phases 4-8's eval students) beside cuDNN's float32 call with
@@ -146,6 +160,7 @@ the ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
 import os
@@ -1857,7 +1872,7 @@ def phase10(gc, Config):
 FR_MODES = {"rof_fused": dict(fr_bwd="rof", fused_jvp=True),
             "rof_plain": dict(fr_bwd="rof", fused_jvp=False),
             "for": dict(fr_bwd="for")}
-FR_ROUNDS = 3        # (b): alternating rounds over the modes
+FR_ROUNDS = 1        # (b): rounds over the modes
 FR_STEPS = 2         # (b): timed outer steps per mode and round
 FR_F64_TOL = 1e-9    # (a): relative error norms in float64
 # cuDNN kernels of the stems' second-order convs (PERF.md section 5)
@@ -2102,9 +2117,211 @@ def phase11(gc, Config):
     return out, launches
 
 
+# phase 12 (a): the quality rehearsal's recipe (tools/torch_quality_roco.sh)
+# at smoke depth, its flags as the recipe passes them
+ROCO_ROWS = 256
+ROCO_FLAGS = ["--dataset=roco", "--text_encoder=bert",
+              "--text_encoder_config=tiny", "--image_size=32",
+              "--batch_size_test=32", "--disable_wandb", "True",
+              "--image_encoder=convnet"]
+ROCO_ITERS = 20
+AUG_TOL = 1e-4      # (c): relative error norm, card against the CPU
+
+
+def roco_smoke_path(gc, Config, work: str) -> dict:
+    """Phase 12 (a): ``tools/torch_make_fixtures.py roco`` at 256 rows,
+    then in ``work`` ``cli.buffer_roco`` (1 expert x 2 epochs),
+    ``cli.distill`` (20 iterations, eval blocks of 2 students at 0 and 20)
+    and ``cli.eval_distilled`` (2 students) on the card, with the recipe's
+    flags (ConvNet 32^2, BERT tiny).  Counters zeroed just before the CLIs
+    and read just after: ConvNet has no grouped conv, so 0 launches.
+    Every ``Grand_Loss`` finite, every metric in [0, 100],
+    ``distilled_20.npz`` readable at the set's shape."""
+    from multimodal_dataset_distillation_tpu_torch.cli import (
+        buffer_roco, distill as dcli, eval_distilled as ecli)
+    from multimodal_dataset_distillation_tpu_torch.config import parse_config
+
+    fixture = os.path.join(work, "fixture")
+    subprocess.run([sys.executable, str(HERE / "tools" /
+                                        "torch_make_fixtures.py"), "roco",
+                    fixture, str(ROCO_ROWS)], check=True)
+    flags = ROCO_FLAGS + [f"--image_root={fixture}/images",
+                          f"--ann_root={fixture}/radiologytraindata.csv"]
+    out = {}
+    with contextlib.chdir(work):
+        torch.cuda.synchronize()
+        gc.reset_launches()
+        t0 = time.perf_counter()
+        saved = buffer_roco.main(parse_config(flags + [
+            "--num_experts=1", "--train_epochs=2", "--batch_size_train=32",
+            "--buffer_path=./buffers", "--lr_teacher_img=0.1",
+            "--lr_teacher_txt=0.1"], defaults=buffer_roco.DEFAULTS))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        distill_flags = flags + [
+            "--num_queries=16", "--mini_batch_size=16", "--syn_steps=4",
+            "--expert_epochs=2", "--max_start_epoch=1",
+            f"--Iteration={ROCO_ITERS}", f"--eval_it={ROCO_ITERS}",
+            "--num_eval=2", "--epoch_eval_train=4", "--batch_train=16",
+            "--buffer_path=./buffers/roco/convnet/bert",
+            "--save_dir=./logged_files", "--draw", "True", "--lr_img=10",
+            "--lr_txt=10", "--lr_lr=1e-6"]
+        distiller, history = dcli.main(parse_config(distill_flags))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        cfg = distiller.cfg
+        npz, = glob.glob(os.path.join(cfg.save_dir, "roco", "*",
+                                      f"distilled_{ROCO_ITERS}.npz"))
+        results = ecli.main(parse_config(flags + [
+            f"--distilled_npz={npz}", "--num_eval=2", "--epoch_eval_train=4",
+            "--batch_train=16", "--std", "True", "--parallel_eval", "False"]),
+            argv=[])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = dict(gc.LAUNCHES)
+        with np.load(npz) as z:
+            shapes = (z["image_syn"].shape, z["text_syn"].shape)
+        losses = [r["Grand_Loss"] for path in sorted(os.listdir(
+            cfg.save_dir)) if path.endswith(".jsonl")
+            for r in map(json.loads, open(os.path.join(cfg.save_dir, path)))
+            if "Grand_Loss" in r]
+    if saved != [0]:
+        raise AssertionError(f"phase 12 (a): buffer_roco saved {saved}")
+    if shapes != ((16, 32, 32, 3), (16, 128)):
+        raise AssertionError(f"phase 12 (a): distilled set {shapes}")
+    if len(losses) != ROCO_ITERS + 1 or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"phase 12 (a): Grand_Loss {losses}")
+    evals = [r for _, rs in history for r in rs] + list(results)
+    if [it for it, _ in history] != [0, ROCO_ITERS] or len(evals) != 6 or \
+            not all(math.isfinite(v) and 0.0 <= v <= 100.0
+                    for r in evals for v in r.values()):
+        raise AssertionError(f"phase 12 (a): metrics {history} {results}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 12 (a): launches {launches}, expected "
+                             f"none (ConvNet has no grouped conv)")
+    out = {"buffer_s": t1 - t0, "distill_s": t2 - t1, "eval_s": t3 - t2,
+           "grand_loss_first_last": [losses[0], losses[-1]],
+           "r_mean_eval": [r["r_mean"] for r in results],
+           "launches": launches}
+    print("phase 12 (a) ROCO fixture through the three CLIs: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def legacy_pt_path(gc, Config, work: str) -> dict:
+    """Phase 12 (b): phase 3's 2-snapshot expert segment written as a
+    ``.pt`` buffer the way the JAX package's writers before round 4 did
+    (every leaf through ``ascontiguousarray``, so the 0-d skipinit gains
+    are ``(1,)``), read back through ``ExpertCycler``, equal to the
+    segment, and fed to one headline NFNet-L0 outer step; counters zeroed
+    just before the step and read just after: phase 3's per step."""
+    from multimodal_dataset_distillation_tpu_torch.engine.distill import (
+        ExpertCycler)
+    from multimodal_dataset_distillation_tpu_torch.utils.flat import (
+        FlatParams)
+
+    cfg = main_cfg(Config)
+    d, traj_img, traj_txt, rng = make_distiller(cfg)
+    files, promoted = [], 0
+    for kind, traj, tower in (("img", traj_img, d.model.image_encoder),
+                              ("txt", traj_txt, d.model.text_projection)):
+        layout = FlatParams(tower)
+        snaps = [[torch.from_numpy(np.ascontiguousarray(t.numpy()))
+                  for t in layout.unflatten(flat).values()]
+                 for flat in traj.cpu()]
+        promoted += sum(t.shape == (1,) and s == () for t, s in
+                        zip(snaps[0], layout.shapes))
+        files.append(os.path.join(work, f"{kind}_replay_buffer_0.pt"))
+        torch.save([snaps], files[-1])
+    if promoted == 0:
+        raise AssertionError("phase 12 (b): no 0-d leaf was promoted")
+    cyc = ExpertCycler(files[:1], files[1:], 1, 1, d.model.image_encoder,
+                       d.model.text_projection, seed=0, device=d.device)
+    ti, tt, start = cyc.next_segment_device()
+    if not (torch.equal(ti, traj_img) and torch.equal(tt, traj_txt)):
+        raise AssertionError("phase 12 (b): the legacy .pt read back "
+                             "differs from the segment written")
+    torch.cuda.synchronize()
+    gc.reset_launches()
+    t0 = time.perf_counter()
+    loss = float(d.step_traj(ti, tt, start, d.sample_indices(rng))[
+        "grand_loss"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = dict(gc.LAUNCHES)
+    cyc.close()
+    want = {k: MAIN_PATH_PER_STEP.get(k, 0) for k in launches}
+    if launches != want or not math.isfinite(loss):
+        raise AssertionError(f"phase 12 (b): loss {loss}, launches "
+                             f"{launches}, expected {want}")
+    out = {"promoted_leaves": promoted, "grand_loss": loss,
+           "step_s": step_s, "launches": launches}
+    print("phase 12 (b) legacy .pt buffer -> headline step: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def diffaug_compare(n: int = 100, size: int = 224) -> dict:
+    """Phase 12 (c): each DSA op's apply and the ``'M'`` dispatcher over
+    every family on an ``n`` x ``size``^2 float32 NHWC batch on the card
+    against the same call on the CPU with the same draws (a CPU
+    generator): relative error norm under ``AUG_TOL``, and a finite,
+    non-zero pixel gradient on the card."""
+    from multimodal_dataset_distillation_tpu_torch.ops import diffaug
+
+    p = diffaug.ParamDiffAug()
+    x = torch.randn((n, size, size, 3),
+                    generator=torch.Generator().manual_seed(12))
+    xg = x.cuda()
+    calls = {name: (lambda v, k=k, apply=apply, u=diffaug.uniforms(
+        k, n, torch.Generator().manual_seed(i), False):
+        apply(v, u.to(v.device), p))
+        for i, (name, (k, apply)) in enumerate(diffaug.OPS.items())}
+    strategy = "color_crop_cutout_flip_scale_rotate"
+    pm = diffaug.ParamDiffAug(aug_mode="M")
+    calls["diff_augment_M"] = lambda v: diffaug.diff_augment(
+        v, strategy, torch.Generator().manual_seed(99), pm)
+    out = {}
+    for name, fn in calls.items():
+        want = fn(x)
+        v = xg.clone().requires_grad_()
+        got = fn(v)
+        err = float((got.detach().cpu() - want).norm() / want.norm())
+        (got ** 2).sum().backward()
+        gnorm = float(v.grad.norm())
+        if not err <= AUG_TOL or not (math.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError(f"phase 12 (c) {name}: relative error "
+                                 f"{err:.3e} (limit {AUG_TOL}), gradient "
+                                 f"norm {gnorm}")
+        out[name] = err
+    print(f"phase 12 (c) diff_augment at {n}x{size}^2, card vs CPU, "
+          "relative error norm: " + json.dumps(out), flush=True)
+    return out
+
+
+def phase12(gc, Config):
+    """Phase 12: (a) the ROCO fixture through the three CLIs, (b) a legacy
+    ``.pt`` buffer into the headline step, (c) DSA on the card against the
+    CPU, (d) each part's wall seconds.  -> the summary and its launch
+    counts per run."""
+    out, secs = {}, {}
+    for part, fn in (("a", lambda w: roco_smoke_path(gc, Config, w)),
+                     ("b", lambda w: legacy_pt_path(gc, Config, w)),
+                     ("c", lambda w: diffaug_compare())):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as work:
+            out[part] = fn(work)
+        torch.cuda.synchronize()
+        secs[part] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print("phase 12 (d) seconds per part: " + json.dumps(secs), flush=True)
+    return out, {"roco_smoke": out["a"]["launches"],
+                 "legacy_pt_step": out["b"]["launches"]}
+
+
 def kernel_entries(rows, launches, launches_eval, launches_expert,
                    launches_cli, regnet_rows, launches_zoo, launches_p10,
-                   launches_p11):
+                   launches_p11, launches_p12):
     """One entry per kernel, summed over one tower pass (mb=100), in the
     dtype of the paths that launch it.  The tensor-core kernels at NFNet-L0's
     19 sites: bf16 for the bf16 ones, float32 for the TF32 ones (phases 4-8;
@@ -2164,6 +2381,7 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
                 "max_abs_err_bf16": err(f"{route}_bf16"),
                 "ms_bf16": total(f"{kind}_{route}_ms"),
                 "ms_cold_bf16": total(f"{kind}_{route}_cold_ms"),
+                "plain_ms_bf16": total(f"{kind}_plain_ms"),
                 "bound_ms_bf16": total(f"{kind}_bound_ms"),
                 "library_ms_bf16": total(f"{kind}_library_ms")})
         entry["per_shape"] = [{k: r[k] for k in keys} for r in rs]
@@ -2197,7 +2415,9 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
             "launches_phase10": {run: n[name]
                                  for run, n in launches_p10.items()},
             "launches_phase11": {run: n[name]
-                                 for run, n in launches_p11.items()}})
+                                 for run, n in launches_p11.items()},
+            "launches_phase12": {run: n[name]
+                                 for run, n in launches_p12.items()}})
         entries.append(entry)
     return entries
 
@@ -2278,6 +2498,8 @@ def main() -> int:
     lap("10")
     _, launches_p11 = phase11(gc, Config)
     lap("11")
+    _, launches_p12 = phase12(gc, Config)
+    lap("12")
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
@@ -2293,7 +2515,7 @@ def main() -> int:
         rows, launches, ev["launches"],
         {run: e["launches"] for run, e in experts.items()},
         cli["launches"], regnet_rows, launches_zoo, launches_p10,
-        launches_p11)}),
+        launches_p11, launches_p12)}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,10 @@ list of snapshots.  Two formats:
   instead, in its ravel order and flax shapes.  A snapshot's shape
   signature is checked against both orders of the module (the JAX order
   first for those towers), so a file in another order is refused instead
-  of read permuted.
+  of read permuted.  Shapes are compared with ``()`` and ``(1,)`` taken as
+  one, as the JAX package's ``identify`` compares them: its writers before
+  round 4 passed each leaf through ``ascontiguousarray``, which promotes a
+  0-d leaf (a skipinit gain) to ``(1,)``.
 
 Writing keeps each format's order, so the JAX ``load_buffer`` reads what
 this module writes: ``.npz`` in JAX ravel order (:func:`~..models.convert.
@@ -121,20 +124,27 @@ def load_trajectory_npz(path: str) -> np.ndarray:
         return z["trajectory"]
 
 
+def _scalars_as_one(shapes) -> List[Tuple[int, ...]]:
+    """A shape signature with ``()`` spelled ``(1,)``."""
+    return [tuple(s) if len(s) else (1,) for s in shapes]
+
+
 def load_trajectories_pt(path: str, template: nn.Module) -> List[np.ndarray]:
     """Load a ``.pt`` buffer -> list of stacked flat trajectories (E+1, P)
     in ``template``'s order, from snapshots in registration order or in the
     JAX tree's leaf order (tried first for a tower without a reference
-    order, should the two signatures coincide)."""
-    want = [tuple(p.shape) for p in template.parameters()]
-    native = jax_shapes(template)
+    order, should the two signatures coincide).  A ``(1,)`` leaf where the
+    parameter is 0-d reads as that parameter (the JAX package's files
+    before round 4); any other mismatch is refused."""
+    want = _scalars_as_one(tuple(p.shape) for p in template.parameters())
+    native = _scalars_as_one(jax_shapes(template))
     jax_first = not has_reference_order(template)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     out = []
     for ti, traj in enumerate(payload):
         snaps = []
         for snap in traj:
-            shapes = [tuple(t.shape) for t in snap]
+            shapes = _scalars_as_one(tuple(t.shape) for t in snap)
             if shapes not in (want, native):
                 raise ValueError(
                     f"{path}: trajectory {ti} holds the module's parameters "

@@ -11,7 +11,7 @@ views of it.  Flat order is module registration order
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -38,3 +38,11 @@ class FlatParams:
 def flatten_params(module: nn.Module) -> torch.Tensor:
     """The module's parameters as one detached flat vector."""
     return torch.cat([p.detach().reshape(-1) for p in module.parameters()])
+
+
+def make_unravel(module: nn.Module) -> Tuple[int, Callable[[torch.Tensor],
+                                                          Dict[str, torch.Tensor]]]:
+    """(flat size, unflatten) of a module's parameters: the counterpart of
+    the JAX package's ``make_unravel`` (size + unravel function)."""
+    layout = FlatParams(module)
+    return sum(layout.sizes), layout.unflatten

@@ -3,13 +3,15 @@
 The port's own copy of ``multimodal_dataset_distillation_tpu/utils/
 logging.py``: :class:`RunLogger` writes every record to
 ``{log_dir}/{name}.jsonl`` (and to wandb when it is importable and not
-disabled, offline unless configured otherwise); :class:`Profiler` is a
+disabled, offline unless configured otherwise); :class:`SmoothedValue`
+and :class:`MetricLogger` track windowed metrics; :class:`Profiler` is a
 ``torch.profiler`` scope writing a Chrome trace, where the JAX package
 uses ``jax.profiler``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
@@ -105,6 +107,76 @@ class RunLogger:
         if self._wandb is not None:
             self._wandb.finish()
         self._file.close()
+
+
+class SmoothedValue:
+    """Windowed median / average tracker (utils.py:714-773 analog)."""
+
+    def __init__(self, window_size: int = 20,
+                 fmt: str = "{median:.4f} ({global_avg:.4f})"):
+        self.deque = collections.deque(maxlen=window_size)
+        self.total = 0.0
+        self.count = 0
+        self.fmt = fmt
+
+    def update(self, value: float, n: int = 1):
+        self.deque.append(value)
+        self.count += n
+        self.total += value * n
+
+    @property
+    def median(self) -> float:
+        return float(np.median(self.deque)) if self.deque else 0.0
+
+    @property
+    def avg(self) -> float:
+        return float(np.mean(self.deque)) if self.deque else 0.0
+
+    @property
+    def global_avg(self) -> float:
+        return self.total / max(self.count, 1)
+
+    @property
+    def value(self) -> float:
+        return self.deque[-1] if self.deque else 0.0
+
+    def __str__(self):
+        return self.fmt.format(median=self.median, avg=self.avg,
+                               global_avg=self.global_avg, value=self.value)
+
+
+class MetricLogger:
+    """Iteration logger (utils.py:623-710 analog): one ``SmoothedValue``
+    per metric name, printed every ``print_freq`` items by ``log_every``."""
+
+    def __init__(self, delimiter: str = "  "):
+        self.meters: Dict[str, SmoothedValue] = collections.defaultdict(
+            SmoothedValue)
+        self.delimiter = delimiter
+
+    def update(self, **kwargs):
+        for k, v in kwargs.items():
+            self.meters[k].update(float(v))
+
+    def __getattr__(self, attr):
+        if attr in self.meters:
+            return self.meters[attr]
+        raise AttributeError(attr)
+
+    def __str__(self):
+        return self.delimiter.join(f"{k}: {v}" for k, v in self.meters.items())
+
+    def log_every(self, iterable, print_freq: int, header: str = ""):
+        start = time.time()
+        iter_time = SmoothedValue(fmt="{avg:.4f}")
+        for i, obj in enumerate(iterable):
+            t0 = time.time()
+            yield obj
+            iter_time.update(time.time() - t0)
+            if i % print_freq == 0:
+                print(f"{header} [{i}]  {self}  time: {iter_time}")
+        total = time.time() - start
+        print(f"{header} Total time: {total:.1f}s")
 
 
 class Profiler:

@@ -127,8 +127,14 @@ def test_text_encoder_random_init_is_seeded():
                            sc["encoder.layer.0.attention.self.query.weight"])
     assert isinstance(a.tokenize, bert.HashingTokenizer)
     assert not any(p.requires_grad for p in a.module.parameters())
+    # the JAX module's (flax's) initializers: Embed normal(hidden^-0.5),
+    # lecun-normal Dense kernels (std fan_in^-0.5), zero biases
     w = sa["embeddings.word_embeddings.weight"]
-    assert float(w[0].abs().max()) == 0.0 and abs(float(w.std()) - 0.02) < 2e-3
+    assert abs(float(w.std()) - 128 ** -0.5) < 2e-3
+    for name, fan_in in (("encoder.layer.0.attention.self.query", 128),
+                         ("encoder.layer.1.output.dense", 512)):
+        assert abs(float(sa[name + ".weight"].std()) - fan_in ** -0.5) < 4e-3
+        assert float(sa[name + ".bias"].abs().max()) == 0.0
     np.testing.assert_array_equal(a.encode(CAPTIONS), b.encode(CAPTIONS))
 
 

@@ -338,9 +338,17 @@ def test_checkpoint_round_trip(tmp_path):
     assert host2.randn() == host.randn()
     with np.load(path + ".meta.npz") as meta:
         assert {"it", "n_queries", "torch_rng", "np_rng_keys"} <= set(meta)
-    with pytest.raises(ValueError, match="JAX package"):
-        load_distill_checkpoint(str(tmp_path / "distill_ckpt_4.msgpack"),
-                                fresh)
+    # a JAX .msgpack is read (tests/test_torch_jax_files.py); one that is
+    # not a flax state dict of arrays is refused
+    import msgpack
+    import shutil
+
+    bad = str(tmp_path / "distill_ckpt_4.msgpack")
+    with open(bad, "wb") as f:
+        f.write(msgpack.packb({"image_syn": msgpack.ExtType(7, b"")}))
+    shutil.copy(path + ".meta.npz", bad + ".meta.npz")
+    with pytest.raises(ValueError, match="ext type 7"):
+        load_distill_checkpoint(bad, fresh)
 
 
 @pytest.mark.parametrize("load_all", [True, False])
