@@ -49,7 +49,7 @@ each of which raises on failure:
    on ``F.conv2d`` (TF32 off), from the same init, seeds and batches.
 7. The expert entry point: ``cli/buffer.main`` at full width (NFNet-L0
    224^2, batch 128, BERT-base random-init from the seed for the caption
-   caches, the kernels on), four runs: (a) 2 experts x 2 epochs, float32,
+   caches, the kernels on), four runs: (a) 2 experts x 1 epoch, float32,
    ``--device_augment`` (RandAugment on the card), 1000 synthetic pairs
    and a 1000 x 5 test split; on 256 pairs and 256 x 5, one epoch each,
    (b) 1 expert in bfloat16 (the bf16 tensor-core kernels), (c) 2
@@ -67,7 +67,7 @@ each of which raises on failure:
 8. The distill entry point: ``cli/distill.main`` at full width (NFNet-L0
    224^2 + ProjectionHead, BERT-base random-init from the seed) on phase
    7 (a)'s 1000 synthetic pairs, caption caches and buffers (2 experts x
-   3 snapshots), in its working directory: the init from real pairs, 4
+   2 snapshots), in its working directory: the init from real pairs, 4
    headline outer steps (the tensor-core kernels), eval blocks of 2
    parallel float32 students at iterations 0 and 3 (the float32 kernels),
    the artifacts, a checkpoint at 2.  Every ``Grand_Loss`` finite;
@@ -94,7 +94,7 @@ each of which raises on failure:
    epoch: all 53 running averages moved; the distill CLI refuses it before
    reading data.  (c) ``cli/eval_distilled.main`` on phase 3's distilled
    set under ViT, NF-ResNet50, NF-RegNet-B1, ResNet-50, ConvNet and NFNet-L0
-   with ``--transfer``, 2 students each, on the 1000 x 5 test split.
+   with ``--transfer``, 2 students each, on a 256 x 5 test split.
    Launches exact in every run: NF-RegNet-B1's 16 sites on the 8-channel
    kernels in either dtype, no kernel for the towers without grouped
    convs, and the generic CUDA-core kernels on no path.
@@ -144,6 +144,20 @@ each of which raises on failure:
    (``ops/diffaug.py``) and the ``'M'`` dispatcher at 100 x 224^2 on the
    card against the CPU on the same draws, float32, 1e-4 relative error
    norm, a finite pixel gradient.  (d) each part's wall seconds.
+13. Data parallelism (``parallel/``): two ranks, this script run again
+   with ``--phase13-rank`` and torchrun's variables, sharing the one card
+   over gloo, asked for explicitly and printed (one card each over NCCL
+   where the machine has two).  (a) phase 4's float32 step (mb=25 padded
+   to 26, ``--shard_syn``, the TF32 kernels) against the one-process step
+   on the same inputs at phase 4's tolerances; (b) the bf16 headline step
+   at full width, 2 timed steps after a warm-up: both ranks' losses bit
+   for bit, each rank's launches phase 3's per step, outer steps/s and
+   each rank's peak printed; (c) the distill CLI on the ranks for 2
+   iterations on phase 7 (a)'s buffers (phase 7's 256-pair caches) with
+   a checkpoint, resumed at world 1 for one step; (d) the buffer CLI on
+   the ranks, 1 expert x 1 epoch on 256 pairs, against a one-rank run on
+   the same global batches at phase 7's 1e-4.  A rank that fails stops
+   both and fails the phase.
 
 Phase 2 also times the CUDA-core kernels and the TF32 kernels in float32
 (the dtype of phases 4-8's eval students) beside cuDNN's float32 call with
@@ -546,11 +560,12 @@ def main_cfg(Config, **kw):
     return Config(**{**base, **kw})
 
 
-def make_distiller(cfg, seed: int = 0, device: str = "cuda"):
+def make_distiller(cfg, seed: int = 0, device: str = "cuda", mesh=None):
     """Seeded NFNet-L0 bi-encoder, synthetic data and a 2-snapshot expert
     trajectory, as bench.py builds them; theta_0's skipinit gains are moved
     off zero so that the residual branches (and the grouped convs in them)
-    shape the loss."""
+    shape the loss.  ``mesh``: the Distiller's data-parallel ranks (every
+    rank builds the same inputs from the seed)."""
     from multimodal_dataset_distillation_tpu_torch.engine.distill import (
         Distiller)
     from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
@@ -569,7 +584,7 @@ def make_distiller(cfg, seed: int = 0, device: str = "cuda"):
     image_syn = rng.randn(cfg.num_queries, cfg.image_size, cfg.image_size,
                           3).astype(np.float32)
     text_syn = rng.randn(cfg.num_queries, 768).astype(np.float32)
-    d = Distiller(cfg, model, image_syn, text_syn, device=device)
+    d = Distiller(cfg, model, image_syn, text_syn, device=device, mesh=mesh)
     traj_img = d.put_trajectory(np.stack(
         [img0, img0 + 0.01 * rng.randn(*img0.shape).astype(np.float32)]))
     traj_txt = d.put_trajectory(np.stack(
@@ -632,14 +647,16 @@ def meta_grads(gc, d, traj_img, traj_txt, rng):
     """One outer step of a fresh Distiller ``d`` (from :func:`make_distiller`)
     -> (its loss and meta-gradients in float64, the launches).  In float64
     the trajectory goes in as float64 too (``put_trajectory`` stores
-    float32, and a float32 start keeps the students' carry float32)."""
+    float32, and a float32 start keeps the students' carry float32).  The
+    set is read whole (:meth:`whole_state`: on data-parallel ranks the
+    rows each rank updated under ``--shard_syn``, gathered)."""
     if d.cfg.inner_dtype == "float64":
         traj_img, traj_txt = traj_img.double(), traj_txt.double()
-    st0 = d.state
+    st0 = d.whole_state()
     gc.reset_launches()
     m = d.step_traj(traj_img, traj_txt, 0, d.sample_indices(rng))
     torch.cuda.synchronize()
-    st = d.state
+    st = d.whole_state()
     # first step: trace = g, update = -lr * g
     res = {"loss": float(m["grand_loss"]),
            "pixels": ((st0.image_syn - st.image_syn) / d.cfg.lr_img).double(),
@@ -647,6 +664,11 @@ def meta_grads(gc, d, traj_img, traj_txt, rng):
            "lr_img": m["syn_lr_img_grad"].double(),
            "lr_txt": m["syn_lr_txt_grad"].double()}
     return res, dict(gc.LAUNCHES)
+
+
+def on_host(res: dict) -> dict:
+    """:func:`meta_grads`'s result with its tensors on the host."""
+    return {k: v.cpu() if torch.is_tensor(v) else v for k, v in res.items()}
 
 
 def rel_errors(a, b) -> dict:
@@ -897,14 +919,14 @@ def expert_cfg(Config, run: str, **kw):
     """Phase 7's configuration: the buffer CLI at full width (NFNet-L0 at
     224^2 + ProjectionHead, batch 128, the kernels on, BERT-base random-init
     from the seed for the caption caches), no pretrained tower; run (a) 2
-    experts x 2 epochs in float32 with the in-step augment on 1000
+    experts x 1 epoch in float32 with the in-step augment on 1000
     synthetic pairs and a 1000 x 5 test split (Flickr30K's test shape)."""
     base = dict(dataset="synthetic", synthetic_size=1000,
                 synthetic_test_size=1000, image_encoder="nfnet",
                 image_size=224, text_encoder="bert",
                 text_encoder_config="base", text_pretrained=False,
                 image_pretrained=False, pallas_gconv=True, num_experts=2,
-                train_epochs=2, batch_size_train=128, batch_size_test=128,
+                train_epochs=1, batch_size_train=128, batch_size_test=128,
                 k_test=128, lr_teacher_img=0.1, lr_teacher_txt=0.1,
                 device_augment=True, disable_wandb=True, seed=0,
                 name=f"phase7{run}", buffer_path="buffers",
@@ -1580,7 +1602,7 @@ def zoo_path(gc, Config, syn, phase3_steps_per_s: float):
         torch.cuda.empty_cache()
     for name, flags in CROSS_EVAL.items():
         out["cross_eval"][name] = eval_path(
-            gc, Config, syn, num_eval=2,
+            gc, Config, syn, num_eval=2, synthetic_test_size=256,
             **{"image_encoder": name, **flags})
         torch.cuda.empty_cache()
     print(f"card: {card_line()}", flush=True)
@@ -2319,9 +2341,335 @@ def phase12(gc, Config):
                  "legacy_pt_step": out["b"]["launches"]}
 
 
+# phase 13: data parallelism across ranks (parallel/mesh.py).  Two ranks:
+# on one card they share it over gloo (NCCL refuses two ranks on one
+# device), asked for explicitly; with two or more cards one rank per card
+# over NCCL.  The ranks are this script run again with DP_RANK_ARG.
+DP_WORLD = 2
+DP_RANK_ARG = "--phase13-rank"
+DP_TIMEOUT = 600     # seconds for the ranks' whole run
+DP_F32 = dict(syn_steps=2, mini_batch_size=25, inner_dtype="float32",
+              shard_syn=True)   # (a): phase 4's step; 25 pads to 26
+DP_STEPS = 2         # (b): timed headline steps after a warm-up
+
+
+def dp_plan() -> dict:
+    """-> the backend, whether the ranks share one card, and the launch
+    environment of each rank (torchrun's variables)."""
+    import socket
+
+    share = torch.cuda.device_count() < DP_WORLD
+    with socket.socket() as sk:   # a free port on this machine
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    envs = []
+    for r in range(DP_WORLD):
+        env = dict(os.environ, WORLD_SIZE=str(DP_WORLD), RANK=str(r),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(DP_WORLD),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        env.pop("MDD_DIST_BACKEND", None)
+        if share:
+            env["MDD_DIST_BACKEND"] = "gloo"
+        envs.append(env)
+    return {"backend": "gloo" if share else "nccl", "share": share,
+            "envs": envs}
+
+
+def dp_spawn(work: str, job: dict) -> list:
+    """Run ``job``'s parts on :data:`DP_WORLD` ranks; -> each rank's
+    results.  A rank that fails or outlives :data:`DP_TIMEOUT` fails the
+    phase; every rank is stopped before this returns."""
+    plan = dp_plan()
+    print(f"phase 13: {DP_WORLD} ranks, backend {plan['backend']} ("
+          + ("sharing the one card: gloo asked for explicitly" if plan["share"]
+             else "one card each") + ")", flush=True)
+    path = os.path.join(work, "phase13_job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    logs = [open(os.path.join(work, f"phase13_rank{r}.log"), "w+")
+            for r in range(DP_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), DP_RANK_ARG, path],
+        env=env, cwd=str(HERE), stdout=log, stderr=subprocess.STDOUT)
+        for env, log in zip(plan["envs"], logs)]
+    deadline = time.time() + DP_TIMEOUT
+    try:   # until all end, one fails (the others would wait on it) or time
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.time() < deadline):
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        for line in text.splitlines():
+            if line.startswith(("[rank", "Device mesh", "phase 13")):
+                print(f"  rank {r}: {line}", flush=True)
+        if p.returncode != 0:
+            raise AssertionError(f"phase 13 rank {r} exited "
+                                 f"{p.returncode}:\n{text[-6000:]}")
+    out = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(work, f"phase13_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def dp_step_f32(gc, Config, mesh, job) -> dict:
+    """(a): phase 4's float32 step (the TF32 kernels, TF32 off elsewhere)
+    with --shard_syn on, its meta-gradients read from the update of the
+    sharded rows (:func:`meta_grads`); rank 0 saves them."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, *inputs = make_distiller(main_cfg(Config, **DP_F32), mesh=mesh)
+    res, launches = meta_grads(gc, d, *inputs)
+    if mesh.rank == 0:
+        torch.save(on_host(res), job["f32_path"])
+    torch.backends.cudnn.allow_tf32 = True
+    return {"launches": launches, "pad": d._inner_pad,
+            "rows": list(d._slots)}
+
+
+def dp_headline(gc, Config, mesh, job) -> dict:
+    """(b): the bf16 headline step at full width, a warm-up step and
+    :data:`DP_STEPS` timed steps; counters read around the timed ones."""
+    from multimodal_dataset_distillation_tpu_torch.parallel import (
+        collectives as col)
+
+    d, traj_img, traj_txt, rng = make_distiller(main_cfg(Config), mesh=mesh)
+    d.step_traj(traj_img, traj_txt, 0, d.sample_indices(rng))
+    torch.cuda.synchronize()
+    col.barrier(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    gc.reset_launches()
+    t0 = time.perf_counter()
+    losses = [d.step_traj(traj_img, traj_txt, 0, d.sample_indices(rng))[
+        "grand_loss"] for _ in range(DP_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(gc.LAUNCHES)
+    return {"launches": launches, "steps_per_s": DP_STEPS / wall,
+            "losses": [float(v) for v in losses],
+            "loss_bits": [float(v).hex() for v in losses],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def dp_distill_cli(gc, Config, mesh, job) -> dict:
+    """(c): the distill CLI on the ranks for 2 iterations on phase 7
+    (a)'s buffers, a checkpoint at iteration 1; launches of its 2
+    steps."""
+    from multimodal_dataset_distillation_tpu_torch.cli import distill as cli
+
+    with contextlib.chdir(job["small_dir"]):
+        gc.reset_launches()
+        cli.main(distill_cli_cfg(Config, **job["cli"]))
+        torch.cuda.synchronize()
+    return {"launches": dict(gc.LAUNCHES)}
+
+
+def dp_buffer_cli(gc, Config, mesh, job) -> dict:
+    """(d): the buffer CLI on the ranks, 1 expert x 1 epoch on 256 pairs."""
+    from multimodal_dataset_distillation_tpu_torch.cli import buffer as cli
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with contextlib.chdir(job["small_dir"]):
+        gc.reset_launches()
+        saved = cli.main(expert_cfg(Config, "a", **job["buffer"]))
+        torch.cuda.synchronize()
+    return {"launches": dict(gc.LAUNCHES), "saved": saved}
+
+
+DP_PARTS = {"a": dp_step_f32, "b": dp_headline, "c": dp_distill_cli,
+            "d": dp_buffer_cli}
+
+
+def dp_rank_main(job_path: str) -> int:
+    """A rank of phase 13: join the ranks (torchrun's environment), run
+    the job's parts, write ``phase13_rank{r}.json`` beside the job."""
+    sys.path.insert(0, str(HERE))
+    import torch.distributed as dist
+
+    from multimodal_dataset_distillation_tpu_torch.config import Config
+    from multimodal_dataset_distillation_tpu_torch.ops import gconv as gc
+    from multimodal_dataset_distillation_tpu_torch.parallel.mesh import (
+        get_mesh)
+
+    with open(job_path) as f:
+        job = json.load(f)
+    # the ranks share the host's cores (CPU-side set-up: inits, data)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DP_WORLD))
+    gc.build()
+    mesh = get_mesh(device="cuda")
+    print(f"[rank {mesh.rank}] world {mesh.world}, backend {mesh.backend}, "
+          f"device {mesh.device}", flush=True)
+    out = {}
+    for part in job["parts"]:
+        t0 = time.perf_counter()
+        out[part] = DP_PARTS[part](gc, Config, mesh, job)
+        torch.cuda.synchronize()
+        out[part]["wall_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        print(f"phase 13 ({part}) rank {mesh.rank}: "
+              f"{json.dumps(out[part])}", flush=True)
+    with open(os.path.join(os.path.dirname(job_path),
+                           f"phase13_rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase13(gc, Config, buffers_dir: str, small_dir: str,
+            phase3_steps_per_s: float) -> tuple:
+    """Phase 13: data parallelism over :data:`DP_WORLD` ranks.  (a) phase
+    4's float32 step on the ranks (mb=25 pads to 26, --shard_syn) against
+    the one-process step on the same inputs, phase 4's tolerances (loss
+    1e-3, meta-gradients 1e-2 relative error norm); (b) the bf16 headline
+    step, each rank's losses bit for bit the other's and its launches
+    phase 3's per step, outer steps/s and each rank's peak; (c) the distill
+    CLI on the ranks for 2 iterations on phase 7's buffers with a
+    checkpoint, resumed at world 1 for one step; (d) the buffer CLI on the
+    ranks (1 expert x 1 epoch, 256 pairs) against a one-rank run on the
+    same global batches, phase 7's tolerance (1e-4 relative error norm of
+    each snapshot of each tower).  -> the summary, launch counts."""
+    from multimodal_dataset_distillation_tpu_torch.cli import buffer as bcli
+    from multimodal_dataset_distillation_tpu_torch.cli import distill as dcli
+    from multimodal_dataset_distillation_tpu_torch.engine.buffer_io import (
+        load_trajectory_npz)
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="phase13_")
+    # (c) reads phase 7 (a)'s buffers from the small runs' directory,
+    # whose caption caches hold 256 pairs
+    cli_kw = dict(Iteration=1, num_eval=0, ckpt_it=1, draw=False,
+                  name="phase13c", save_dir="logged_files_dp",
+                  synthetic_size=256, synthetic_test_size=256,
+                  buffer_path=os.path.join(buffers_dir, "buffers"))
+    buf_kw = dict(_SMALL, name="phase13d")
+    job = {"parts": list(DP_PARTS), "buffers_dir": buffers_dir,
+           "small_dir": small_dir, "cli": cli_kw,
+           "buffer": dict(buf_kw, buffer_path="buffers_dp"),
+           "f32_path": os.path.join(work, "f32.pt")}
+    # (a)'s one-process step, on the same inputs
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one = on_host(meta_grads(gc, *make_distiller(
+        main_cfg(Config, **DP_F32)))[0])
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    ranks = dp_spawn(work, job)
+    t_ranks = time.perf_counter() - t0 - t_ref
+    out = {"world": DP_WORLD, "backend": dp_plan()["backend"],
+           "reference_s": t_ref, "ranks_s": t_ranks}
+    # (a)
+    want = site_launches("nfnet", "float32", 8 * DP_F32["syn_steps"],
+                         4 * DP_F32["syn_steps"])
+    two = torch.load(job["f32_path"])
+    a = {"pad": ranks[0]["a"]["pad"],
+         "rows": [r["a"]["rows"] for r in ranks],
+         "launches": [r["a"]["launches"] for r in ranks],
+         **rel_errors(two, one)}
+    if not (a["loss_rel_err"] <= 1e-3
+            and all(a[f"{k}_grad_rel_err"] <= 1e-2 for k in META_GRADS)
+            and all(n == want for n in a["launches"]) and a["pad"] == 1):
+        raise AssertionError(f"phase 13 (a): {a}; launches expected {want}")
+    out["a"] = a
+    # (b)
+    want = {k: n * DP_STEPS for k, n in MAIN_PATH_PER_STEP.items()}
+    b = {"steps_per_s": [r["b"]["steps_per_s"] for r in ranks],
+         "peak_gib": [r["b"]["peak_gib"] for r in ranks],
+         "losses": [r["b"]["losses"] for r in ranks],
+         "launches": [r["b"]["launches"] for r in ranks],
+         "phase3_steps_per_s": phase3_steps_per_s}
+    if (len({tuple(r["b"]["loss_bits"]) for r in ranks}) != 1
+            or not all(math.isfinite(v) for v in b["losses"][0])
+            or any({k: n for k, n in la.items() if n} != want
+                   for la in b["launches"])):
+        raise AssertionError(f"phase 13 (b): {b}; launches expected {want}")
+    out["b"] = b
+    # (c): the ranks' 2 steps, then the checkpoint at world 1, one step
+    cfg = distill_cli_cfg(Config, **cli_kw)
+    want = {k: n * 2 for k, n in MAIN_PATH_PER_STEP.items()}
+    run_dir = os.path.join(small_dir, cfg.save_dir, cfg.dataset, cfg.name)
+    ckpt = os.path.join(run_dir, "distill_ckpt_1.pt")
+    with contextlib.chdir(small_dir):
+        with open(os.path.join(cfg.save_dir, f"{cfg.name}.jsonl")) as f:
+            two_losses = [r["Grand_Loss"] for r in map(json.loads, f)
+                          if "Grand_Loss" in r]
+        gc.reset_launches()
+        distiller, _ = dcli.main(cfg.replace(Iteration=2, resume_from=ckpt))
+        torch.cuda.synchronize()
+        resumed = dict(gc.LAUNCHES)
+        with open(os.path.join(cfg.save_dir, f"{cfg.name}.jsonl")) as f:
+            all_losses = [r["Grand_Loss"] for r in map(json.loads, f)
+                          if "Grand_Loss" in r]
+    c = {"losses_two_ranks": two_losses, "losses_resumed": all_losses[2:],
+         "launches": [r["c"]["launches"] for r in ranks],
+         "launches_resumed": resumed}
+    if not (len(two_losses) == 2 and len(all_losses) == 3
+            and all(math.isfinite(v) for v in all_losses)
+            and all({k: n for k, n in la.items() if n} == want
+                    for la in c["launches"])
+            and {k: n for k, n in resumed.items() if n}
+            == dict(MAIN_PATH_PER_STEP)
+            and torch.isfinite(distiller.state.image_syn).all()):
+        raise AssertionError(f"phase 13 (c): {c}")
+    del distiller
+    torch.cuda.empty_cache()
+    out["c"] = c
+    # (d): the one-rank run on the same global batches
+    cfg = expert_cfg(Config, "a", **buf_kw)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with contextlib.chdir(small_dir):
+        bcli.main(cfg.replace(buffer_path="buffers_dp1"))
+        d_err = {}
+        for kind in ("img", "txt"):
+            one_b, two_b = (load_trajectory_npz(os.path.join(
+                bcli.expert_dir(cfg.replace(buffer_path=bp)),
+                f"{kind}_replay_buffer_0.npz"))
+                for bp in ("buffers_dp1", "buffers_dp"))
+            d_err[kind] = [float(np.linalg.norm(x - y) / np.linalg.norm(y))
+                           for x, y in zip(two_b, one_b)]
+    dl = [r["d"]["launches"] for r in ranks]
+    full = expert_launches(cfg)
+    train = site_launches("nfnet", "float32", 2 * (256 // 128), 256 // 128)
+    dd = {"rel_err": d_err, "launches": dl,
+          "saved": [r["d"]["saved"] for r in ranks]}
+    if not (all(e <= 1e-4 for v in d_err.values() for e in v)
+            and dd["saved"] == [[0], []]
+            and {k: n for k, n in dl[0].items() if n}
+            == {k: n for k, n in full.items() if n}
+            and {k: n for k, n in dl[1].items() if n}
+            == {k: n for k, n in train.items() if n}):
+        raise AssertionError(f"phase 13 (d): {dd}")
+    out["d"] = dd
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 13: {DP_WORLD} ranks ({out['backend']}): headline "
+          f"{b['steps_per_s']} outer steps/s per rank (phase 3's one "
+          f"process: {phase3_steps_per_s:.4f}), peaks {b['peak_gib']} GiB; "
+          f"card {card_line()}", flush=True)
+    print("phase 13: " + json.dumps(out), flush=True)
+    import shutil
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {"f32_step_rank0": a["launches"][0],
+                "headline_rank0": b["launches"][0],
+                "distill_cli_rank0": c["launches"][0],
+                "distill_cli_resumed": resumed,
+                "buffer_cli_rank0": dl[0], "buffer_cli_rank1": dl[1]}
+    return out, launches
+
+
 def kernel_entries(rows, launches, launches_eval, launches_expert,
                    launches_cli, regnet_rows, launches_zoo, launches_p10,
-                   launches_p11, launches_p12):
+                   launches_p11, launches_p12, launches_p13):
     """One entry per kernel, summed over one tower pass (mb=100), in the
     dtype of the paths that launch it.  The tensor-core kernels at NFNet-L0's
     19 sites: bf16 for the bf16 ones, float32 for the TF32 ones (phases 4-8;
@@ -2341,7 +2689,9 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
     distill CLI, all routes); ``launches_zoo``: phase 9's per run;
     ``launches_phase10``: phase 10's per run (the s2d A/B per timed run);
     ``launches_phase11``: phase 11's per run (the float32 steps of the
-    modes other than phase 4's, and each mode's timed headline run).  Each
+    modes other than phase 4's, and each mode's timed headline run);
+    ``launches_phase13``: phase 13's per run on rank 0 (and rank 1's buffer
+    CLI run, which skips the test passes).  Each
     entry, and its ``nfnet_shapes``, names the tower whose shapes its
     numbers were taken at (``tower``)."""
     def measures(name, kind, route, sfx, rs):
@@ -2417,12 +2767,16 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
             "launches_phase11": {run: n[name]
                                  for run, n in launches_p11.items()},
             "launches_phase12": {run: n[name]
-                                 for run, n in launches_p12.items()}})
+                                 for run, n in launches_p12.items()},
+            "launches_phase13": {run: n.get(name, 0)
+                                 for run, n in launches_p13.items()}})
         entries.append(entry)
     return entries
 
 
 def main() -> int:
+    if len(sys.argv) > 2 and sys.argv[1] == DP_RANK_ARG:
+        return dp_rank_main(sys.argv[2])
     if not (HERE / PKG / "csrc" / "gconv3x3_tc.cu").is_file():
         print(f"chip_smoke: {PKG}/ is not beside this script", file=sys.stderr)
         return 2
@@ -2480,17 +2834,20 @@ def main() -> int:
     compare_eval(gc, Config, syn)
     lap("6")
     experts = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for run in EXPERT_RUNS:   # (a) alone: phase 8 reads its buffers
-            work = os.path.join(tmp, "a" if run == "a" else "small")
-            os.makedirs(work, exist_ok=True)
-            with contextlib.chdir(work):
-                experts[run] = expert_path(gc, Config, run)
-            torch.cuda.empty_cache()
-        compare_expert(gc, Config)
-        lap("7")
-        with contextlib.chdir(os.path.join(tmp, "a")):
-            cli = distill_cli_path(gc, Config, path["steps_per_s"])
+    # phase 7's working directories: (a)'s buffers and caption caches feed
+    # phases 8 and 13 (c), the small runs' caches phase 13 (d)
+    tmp_dirs = tempfile.TemporaryDirectory()
+    tmp = tmp_dirs.name
+    for run in EXPERT_RUNS:   # (a) alone: phase 8 reads its buffers
+        work = os.path.join(tmp, "a" if run == "a" else "small")
+        os.makedirs(work, exist_ok=True)
+        with contextlib.chdir(work):
+            experts[run] = expert_path(gc, Config, run)
+        torch.cuda.empty_cache()
+    compare_expert(gc, Config)
+    lap("7")
+    with contextlib.chdir(os.path.join(tmp, "a")):
+        cli = distill_cli_path(gc, Config, path["steps_per_s"])
     lap("8")
     regnet_rows, zoo = zoo_path(gc, Config, syn, path["steps_per_s"])
     lap("9")
@@ -2500,6 +2857,11 @@ def main() -> int:
     lap("11")
     _, launches_p12 = phase12(gc, Config)
     lap("12")
+    _, launches_p13 = phase13(gc, Config, os.path.join(tmp, "a"),
+                              os.path.join(tmp, "small"),
+                              path["steps_per_s"])
+    tmp_dirs.cleanup()
+    lap("13")
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
@@ -2515,7 +2877,7 @@ def main() -> int:
         rows, launches, ev["launches"],
         {run: e["launches"] for run, e in experts.items()},
         cli["launches"], regnet_rows, launches_zoo, launches_p10,
-        launches_p11, launches_p12)}),
+        launches_p11, launches_p12, launches_p13)}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,11 +19,23 @@ raises.  Flow (distill_original.py:89-496):
    after the next step is queued; a checkpoint every ``ckpt_it``
    iterations, and --resume_from.
 
-One card only.  ``--mesh_shape`` and more than one visible card raise
-``NotImplementedError`` at start-up, before any data is read
-(:func:`check_supported`); so do, with ``ValueError``, the students the
-JAX distill CLI cannot run either (:func:`~..engine.distill.
-check_distillable`).  ``--transfer`` gives the eval students the transfer
+Data parallel across ranks (:mod:`..parallel.mesh`), one process per
+card under torchrun (``torchrun --nproc_per_node=N -m ...cli.distill``):
+the inner minibatch pads to a multiple of the world and each rank embeds
+its slots; ``--shard_syn`` (on by default, as in the JAX package) splits
+the synthetic set over the ranks.  Every rank prints the JAX CLI's mesh
+line; the initial synthetic set is checked to be the same on every rank;
+the expert cycler walks the same segments on every rank (the same seed);
+logs, images, ``distilled_*.npz`` and checkpoints are written by rank 0;
+the NaN bail-out is agreed over the ranks.  The eval students split over
+the ranks when ``--parallel_eval`` and ``num_eval`` divides the world, else
+rank 0 evaluates alone.  At start-up, before any data is read
+(:func:`check_supported`, :func:`~..parallel.mesh.get_mesh`): a
+``--mesh_shape`` that does not multiply to the world raises
+``ValueError``, as does a student the JAX distill CLI cannot run either
+(:func:`~..engine.distill.check_distillable`); one process that sees
+several cards, or ranks that share a card without ``gloo``, raise
+``RuntimeError``.  ``--transfer`` gives the eval students the transfer
 head and leaves the distill students plain, as there.  ``--zca`` fits ZCA
 whitening on the host (at most 2048 train images), whitens the real-init
 pixels and adds the de-whitened artifacts; ``--stem_s2d`` (or
@@ -43,7 +55,7 @@ from __future__ import annotations
 import functools
 import math
 import os
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,7 +85,15 @@ from ..engine.eval import evaluate_synset, evaluate_synset_parallel
 from ..models.clip_model import VLBiEncoder, build_bi_encoder, init_bi_encoder
 from ..models.zoo import load_timm_image_tower, load_timm_state_dict
 from ..ops.zca import ZCAWhitening
-from ..utils.logging import Profiler, RunLogger, get_time
+from ..parallel import collectives as col
+from ..parallel.mesh import (
+    Mesh,
+    check_mesh_shape,
+    data_axis_size,
+    get_mesh,
+    pad_to_multiple,
+)
+from ..utils.logging import Profiler, RunLogger, SilentLogger, get_time
 from ..utils.visualize import save_visualizations
 from .buffer import make_caption_lookup
 
@@ -102,25 +122,38 @@ def make_eval_initializer(cfg: Config
 
 
 def check_supported(cfg: Config, ignore: Sequence[str] = ()) -> None:
-    """Raise ``NotImplementedError`` for ``--mesh_shape`` and more than one
-    visible card (multi-card is not ported yet: ROADMAP A, item 18), and
-    ``RuntimeError`` when the device asked for is a card and none is there.  ``ignore``: flags the calling
-    entry point never reads (as its JAX counterpart does not), skipped."""
-    queued = [(bool(cfg.mesh_shape), "--mesh_shape", "parallel/mesh.py", 18)]
+    """Start-up checks, before any data is read: ``RuntimeError`` when the
+    device asked for is a card and none is there, ``ValueError`` for a
+    ``--mesh_shape`` that does not fit the world (torchrun's
+    ``WORLD_SIZE``).  ``ignore``: flags the calling entry point never
+    reads (as its JAX counterpart does not), skipped."""
     device = torch.device(cfg.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {cfg.device!r} asked for and no CUDA card is "
-                f"visible; run with a card, or cfg.replace(device='cpu')")
-        queued.append((torch.cuda.device_count() > 1,
-                       f"{torch.cuda.device_count()} visible cards",
-                       "parallel/mesh.py (multi-card)", 18))
-    for on, flag, module, item in queued:
-        if on and flag not in ignore:
-            raise NotImplementedError(
-                f"{flag}: {module} is not ported yet (ROADMAP A, item "
-                f"{item}); this entry point runs on one card")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {cfg.device!r} asked for and no CUDA card is "
+            f"visible; run with a card, or cfg.replace(device='cpu')")
+    if "--mesh_shape" not in ignore:
+        check_mesh_shape(cfg.mesh_shape, cfg.mesh_axes)
+
+
+def start_mesh(cfg: Config) -> Tuple[Config, Mesh]:
+    """Join the ranks (:func:`~..parallel.mesh.get_mesh`); -> (the config
+    on this rank's device, the mesh)."""
+    mesh = get_mesh(cfg.mesh_shape, cfg.mesh_axes, device=cfg.device)
+    if mesh.world > 1:
+        print(f"[rank {mesh.rank}] {mesh.world} ranks on {mesh.nodes} "
+              f"node(s), backend {mesh.backend}, device {mesh.device}",
+              flush=True)
+    return cfg.replace(device=str(mesh.device)), mesh
+
+
+def run_logger(cfg: Config, mesh: Mesh):
+    """Rank 0's :class:`RunLogger`; the other ranks log nothing, under
+    rank 0's run name."""
+    logger = (RunLogger(name=cfg.name, disable_wandb=cfg.disable_wandb,
+                        log_dir=cfg.save_dir) if mesh.is_main else None)
+    name = col.broadcast_object(logger.name if logger else None, mesh)
+    return logger or SilentLogger(name)
 
 
 def _bootstrap_dummy_buffers(expert_dir: str, model: VLBiEncoder,
@@ -162,24 +195,26 @@ def main(cfg: Config):
     check_supported(cfg)
     with torch.device("meta"):   # shapes only: no weights are made
         check_distillable(build_bi_encoder(_student_cfg(cfg), device="meta"))
+    cfg, mesh = start_mesh(cfg)
     device = torch.device(cfg.device)
     if cfg.texture and cfg.pix_init == "real":
         print("WARNING: Using texture with real initialization will take a "
               "very long time to smooth out the boundaries between images.")
 
-    logger = RunLogger(name=cfg.name, disable_wandb=cfg.disable_wandb,
-                       log_dir=cfg.save_dir)
-    print("Hyper-parameters: \n", cfg)
+    logger = run_logger(cfg, mesh)
+    if mesh.is_main:
+        print("Hyper-parameters: \n", cfg)
 
     trainloader, testloader, train_dataset, test_dataset = get_dataset(cfg)
     train_sentences = train_dataset.get_all_captions()
     text_encoder = make_text_encoder(cfg)
-    data = load_or_process_file(
-        "text", functools.partial(textprocess, encoder=text_encoder), cfg,
-        testloader)
+    with col.main_first(mesh):   # rank 0 writes the caption caches
+        data = load_or_process_file(
+            "text", functools.partial(textprocess, encoder=text_encoder),
+            cfg, testloader)
+        _, train_caption_embed, _ = make_caption_lookup(
+            train_dataset, cfg, encoder=text_encoder)
     bert_test_embed = data["bert_test_embed"].astype(np.float32)
-    _, train_caption_embed, _ = make_caption_lookup(train_dataset, cfg,
-                                                    encoder=text_encoder)
 
     rng = np.random.RandomState(cfg.seed)
 
@@ -205,12 +240,22 @@ def main(cfg: Config):
         # get_dataset (utils.py:50-105): whiten the real-init pixels here
         image_syn = zca.transform(image_syn)
     del text_encoder  # the caches hold all the run needs of the tower
+    col.check_replicated(torch.from_numpy(image_syn), mesh,
+                         "the initial synthetic images")
+    col.check_replicated(torch.from_numpy(text_syn), mesh,
+                         "the initial synthetic texts")
 
     # ---- student template + distiller ----
     student_cfg = _student_cfg(cfg)
     model = init_bi_encoder(build_bi_encoder(student_cfg), cfg.seed)
+    if mesh.world > 1:
+        mb = min(cfg.mini_batch_size, cfg.num_queries)
+        padded = pad_to_multiple(mb, data_axis_size(mesh))
+        print(f"Device mesh: {mesh.shape}" + (
+            f" (mini_batch {mb} -> {padded} pad-and-mask)"
+            if padded != mb else ""), flush=True)
     distiller = Distiller(student_cfg, model, image_syn, text_syn,
-                          device=device)
+                          device=device, mesh=mesh)
 
     # ---- expert buffers (distill_original.py:170-196) ----
     expert_dir = cfg.buffer_path
@@ -219,8 +264,9 @@ def main(cfg: Config):
     if not discover_buffers(expert_dir)[0] and discover_buffers(nested)[0]:
         expert_dir = nested
     print(f"Expert Dir: {expert_dir}")
-    if not discover_buffers(expert_dir)[0]:
-        _bootstrap_dummy_buffers(expert_dir, model, cfg.expert_epochs)
+    with col.main_first(mesh):
+        if not discover_buffers(expert_dir)[0]:
+            _bootstrap_dummy_buffers(expert_dir, model, cfg.expert_epochs)
     img_files, txt_files = discover_buffers(expert_dir)
     # an .npz of another width raises the flat-size ValueError here
     cycler = ExpertCycler(img_files, txt_files, cfg.max_start_epoch,
@@ -255,7 +301,7 @@ def main(cfg: Config):
             return True
         pit, metrics = pending
         grand = float(metrics["grand_loss"])
-        if math.isnan(float(metrics["img_param_loss"])):
+        if col.agree(math.isnan(float(metrics["img_param_loss"])), mesh):
             print("NaN param loss — stopping (distill.py:599)")
             distiller.nan_bailout_it = pit
             return False
@@ -268,7 +314,7 @@ def main(cfg: Config):
                     "Start_Epoch": metrics["_start_epoch"],
                     "img_param_loss": metrics["img_param_loss"],
                     "txt_param_loss": metrics["txt_param_loss"]}, step=pit)
-        if pit % 10 == 0:
+        if pit % 10 == 0 and mesh.is_main:
             print(f"{get_time()} iter = {pit:04d}, loss = {grand:.4f}")
         return True
 
@@ -291,19 +337,26 @@ def main(cfg: Config):
             if eval_model is None:
                 eval_model = build_bi_encoder(eval_cfg)
             img_eval, txt_eval = distiller.syn_arrays()
-            if cfg.parallel_eval and cfg.num_eval > 1:
+            parallel = cfg.parallel_eval and cfg.num_eval > 1
+            # the students split over the ranks when they divide evenly;
+            # else rank 0 evaluates alone (the JAX CLI's eval_mesh=None)
+            eval_mesh = mesh if cfg.num_eval % mesh.data == 0 else None
+            if parallel and (eval_mesh or mesh.is_main):
                 var_list = [eval_init(eval_model, cfg.seed + 1000 + j)
                             for j in range(cfg.num_eval)]
                 _, results = evaluate_synset_parallel(
                     cfg.num_eval, eval_model, var_list, img_eval, txt_eval,
-                    testloader, eval_cfg, bert_test_embed, reuse=eval_reuse)
-            else:
+                    testloader, eval_cfg, bert_test_embed, reuse=eval_reuse,
+                    mesh=eval_mesh)
+            elif mesh.is_main:
                 for j in range(cfg.num_eval):
                     variables = eval_init(eval_model, cfg.seed + 1000 + j)
                     results.append(evaluate_synset(
                         j, eval_model, variables, img_eval, txt_eval,
                         testloader, eval_cfg, bert_test_embed,
                         reuse=eval_reuse)[2])
+            if not mesh.is_main:
+                results = []
             for j, val in enumerate(results):
                 print(f"Evaluate_{j:02d}: "
                       + " ".join(f"{k}={v:.4f}" for k, v in val.items()))
@@ -319,7 +372,7 @@ def main(cfg: Config):
             history.append((it, results))
             _memory_probe(f"post-eval it={it}", device)
 
-            if cfg.draw:
+            if cfg.draw and mesh.is_main:
                 # grids and sentences gated as the reference (distill.py:
                 # 368: ipc < 50 or --force_save); the npz always saves
                 arts = save_visualizations(
@@ -341,7 +394,8 @@ def main(cfg: Config):
                                     path=arts["sentences"])
 
         # ---- one outer step ----
-        with Profiler(cfg.profile_dir if it == 2 else None):
+        with Profiler(cfg.profile_dir if it == 2 and mesh.is_main
+                      else None):
             traj_img, traj_txt, start_epoch = cycler.next_segment_device()
             metrics = distiller.step_traj(traj_img, traj_txt, start_epoch,
                                           distiller.sample_indices(rng))

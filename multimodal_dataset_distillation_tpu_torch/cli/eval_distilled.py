@@ -35,7 +35,8 @@ from .distill import check_supported, make_eval_initializer
 
 #: flags that the JAX eval_distilled never reads (the ZCA, the mesh and the
 #: space-to-depth stem are the distill and buffer CLIs' only), so this entry
-#: point ignores them too: ``check_supported`` skips the mesh, ``main``
+#: point ignores them too: ``check_supported`` skips the mesh (one card,
+#: as the JAX CLI builds no mesh: more than one rank raises), ``main``
 #: never reads ``zca`` and builds its students with ``stem_s2d`` off
 #: (``MDD_STEM_S2D`` still applies, as it does to the JAX package's gate)
 EVAL_IGNORES = ("--mesh_shape",)
@@ -83,8 +84,15 @@ def main(cfg: Config, argv: Optional[Sequence[str]] = None) -> List[dict]:
     """``argv``: the command line the config came from (``sys.argv`` when
     None), read only for an explicit ``--lr_net``.  A flag whose module is
     not ported yet, or a card asked for and missing, raises before any
-    data is read (:func:`check_supported`)."""
+    data is read (:func:`check_supported`); so does a launch of more than
+    one rank (the JAX eval CLI builds no mesh)."""
     check_supported(cfg, ignore=EVAL_IGNORES)
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world > 1:
+        raise RuntimeError(
+            f"eval_distilled runs on one card, as the JAX eval CLI builds "
+            f"no mesh ({world} ranks launched): run it as one process; the "
+            f"distill CLI splits its eval students over the ranks")
     cfg = cfg.replace(stem_s2d=False)
     if not cfg.distilled_npz:
         raise SystemExit("--distilled_npz=<path to distilled_{it}.npz or "

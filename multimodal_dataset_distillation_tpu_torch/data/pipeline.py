@@ -20,11 +20,24 @@ from ..utils import augrng
 
 
 class Loader:
-    """Iterable over (stacked_images, list_or_array_extras...) batches."""
+    """Iterable over (stacked_images, list_or_array_extras...) batches.
+
+    Two ways to feed data-parallel ranks, both ``(index, count)``:
+
+    * ``shard`` (the JAX Loader's, multi-node ``--distributed``): every
+      process draws the same epoch permutation and takes its contiguous
+      ``1/count`` of it (equal shards, the remainder dropped);
+      ``batch_size`` is the per-process batch.
+    * ``rows``: the batches of the unsharded loader, each cut to its
+      ``index``-th of ``count`` equal parts (only those items are read),
+      so the ranks together see the one-process batches.
+    """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 4,
-                 seed: Optional[int] = None, prefetch: int = 2):
+                 seed: Optional[int] = None, prefetch: int = 2,
+                 shard: Optional[Tuple[int, int]] = None,
+                 rows: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -32,10 +45,26 @@ class Loader:
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.prefetch = prefetch
+        self.shard = shard
+        if rows is not None and (batch_size % rows[1] or not drop_last):
+            raise ValueError(f"batches of {batch_size} cut in {rows[1]} "
+                             f"parts: the batch must divide and drop_last "
+                             f"be set")
+        self.rows = rows
         self._epoch = 0
 
-    def __len__(self) -> int:
+    def set_epoch(self, epochs_done: int) -> None:
+        """Continue as a loader that has served ``epochs_done`` epochs (the
+        next one shuffles with ``seed + epochs_done + 1``): an expert of a
+        fan-out sees the batches of the sequential run."""
+        self._epoch = int(epochs_done)
+
+    def _shard_len(self) -> int:
         n = len(self.dataset)
+        return n if self.shard is None else n // self.shard[1]
+
+    def __len__(self) -> int:
+        n = self._shard_len()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -46,6 +75,10 @@ class Loader:
             rng = (np.random.RandomState(self.seed + self._epoch)
                    if self.seed is not None else np.random)
             rng.shuffle(idx)
+        if self.shard is not None:
+            pid, nproc = self.shard
+            per = len(self.dataset) // nproc
+            idx = idx[pid * per:(pid + 1) * per]
         return idx
 
     def _collate(self, items: List[Tuple]) -> Tuple:
@@ -64,6 +97,10 @@ class Loader:
         n_batches = len(self)
         batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(n_batches)]
+        if self.rows is not None:
+            part, count = self.rows
+            per = self.batch_size // count
+            batches = [b[part * per:(part + 1) * per] for b in batches]
 
         if self.seed is not None:
             # per-item augmentation RNG: a seeded loader's augment draws

@@ -20,6 +20,13 @@ as ``mom_img`` / ``mom_txt`` / ``mom_lr``.  The mesh's padding rows
 does for a run on one device.  From its ``.meta.npz`` the keys the two
 packages share are read; its ``jax_rng`` has no torch counterpart, so the
 dropout-seed generator starts from the config's seed, as in a fresh run.
+
+On a data-parallel mesh every rank calls both functions.  The checkpoint
+holds the whole set without pad rows, written by rank 0 alone; resume
+gives each rank its rows again, re-padded to the current world's
+``--shard_syn`` pad (the port's ``_repad_syn_rows``: exact, as pad rows
+are never indexed), so a checkpoint written at one world size resumes at
+another.
 """
 
 from __future__ import annotations
@@ -55,9 +62,12 @@ def _set_rng(rng: np.random.RandomState, meta, prefix: str) -> None:
 
 def save_distill_checkpoint(path: str, distiller, it: int, cycler=None,
                             host_rng=None) -> str:
-    """Write ``path`` (``.pt``) and ``path + ".meta.npz"``; -> ``path``."""
+    """Write ``path`` (``.pt``) and ``path + ".meta.npz"`` (rank 0 writes;
+    every rank of a mesh calls); -> ``path``."""
+    st = distiller.whole_state()
+    if not distiller.mesh.is_main:
+        return path
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    st = distiller.state
     blob = {f.name: getattr(st, f.name) for f in dataclasses.fields(st)}
     blob["mom_lr"] = list(st.mom_lr)
     torch.save({k: ([t.detach().cpu() for t in v] if isinstance(v, list)
@@ -184,7 +194,7 @@ def load_distill_checkpoint(path: str, distiller, cycler=None,
         blob = _jax_state_blob(path, distiller.n_queries)
     else:
         blob = torch.load(path, map_location="cpu", weights_only=True)
-    cur = distiller.state
+    cur = distiller.whole_state()
 
     def put(saved: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         if saved.shape != like.shape:
@@ -197,7 +207,7 @@ def load_distill_checkpoint(path: str, distiller, cycler=None,
               for f in dataclasses.fields(cur) if f.name != "mom_lr"}
     fields["mom_lr"] = tuple(put(a, b) for a, b in zip(blob["mom_lr"],
                                                        cur.mom_lr))
-    distiller.state = DistillState(**fields)
+    distiller.set_whole_state(DistillState(**fields))
     if from_jax:
         print(f"{path}: the JAX package's jax_rng has no torch counterpart; "
               f"dropout seeds start from seed {distiller.cfg.seed}, as in a "

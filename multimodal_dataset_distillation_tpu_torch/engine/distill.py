@@ -37,6 +37,23 @@ Meta-backward through each inner step ``theta' = theta - lr * g``:
 Dropout and DropPath masks come from a ``torch.Generator`` seeded per inner
 step and tower, so the Function's recompute redraws the same masks.
 
+Data parallelism (``mesh`` of :mod:`..parallel.mesh` with more than one
+rank), the JAX Distiller's mesh path: the minibatch is padded to a
+multiple of the world (pad-and-mask) and each rank embeds its slots; the
+embeddings are gathered (:func:`~..parallel.collectives.gather_rows`), so
+every rank computes the same global InfoNCE.  The students' parameters
+enter the towers through :func:`~..parallel.collectives.copy_to_ranks`,
+whose backward sums over the ranks: every gradient of a replicated tensor
+(the inner gradient, the Hessian action, the LR terms) is whole on every
+rank, in every ``fr_bwd`` and ``hvp_mode``.  Dropout and DropPath draw the
+whole minibatch's masks and keep the rank's rows
+(:class:`~..parallel.mesh.RowShard`), so a step at any world is the
+one-rank step.  The synthetic set's meta-gradient (each rank's rows' part)
+is summed over the ranks; under ``--shard_syn`` it is reduce-scattered
+instead, and rank r holds rows ``[r n/W, (r+1) n/W)`` of the set padded
+to ``n`` rows with inert pad rows (never indexed: zero meta-gradient), of
+their momentum too, and gathers a working copy once per outer step.
+
 Any stateless tower of the zoo distils.  Two configurations do not, as
 they do not in the JAX package (:func:`check_distillable`): a tower with
 BatchNorm, and a bi-encoder with an image projection.
@@ -59,6 +76,8 @@ from ..models.clip_model import VLBiEncoder
 from ..models.layers import BatchNorm
 from ..ops import fused_jvp
 from ..ops.contrastive import RAW_LOG_SCALE, _symmetric_ce, l2_normalize
+from ..parallel import collectives as col
+from ..parallel.mesh import SINGLE, Mesh, RowShard, pad_to_multiple
 from ..utils.flat import FlatParams
 from .buffer_io import load_buffer
 
@@ -137,12 +156,16 @@ class Distiller:
     segments."""
 
     def __init__(self, cfg: Config, model: VLBiEncoder,
-                 image_syn, text_syn, *, device="cuda", inner_pad: int = 0):
+                 image_syn, text_syn, *, device="cuda", inner_pad: int = 0,
+                 mesh: Optional[Mesh] = None):
         """``inner_pad`` pads each inner minibatch with that many masked
-        slots (the exact pad-and-mask loss of the JAX package's mesh path;
-        the data-parallel slice sets it from the world size)."""
+        slots (the exact pad-and-mask loss of the JAX package's mesh path);
+        on a ``mesh`` of W ranks it is set from W.  ``image_syn`` and
+        ``text_syn`` are the whole set, the same on every rank."""
         check_distillable(model)
         self.cfg = cfg
+        self.mesh = mesh or SINGLE
+        world = self.mesh.world
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.inner_dtype = _DTYPES.get(cfg.inner_dtype, torch.float32)
@@ -167,7 +190,21 @@ class Distiller:
         image_syn, text_syn = put(image_syn), put(text_syn)
         self.n_queries = int(image_syn.shape[0])
         self._inner_mb = int(min(cfg.mini_batch_size, self.n_queries))
-        self._inner_pad = int(inner_pad)
+        self._inner_pad = int(inner_pad) or (
+            pad_to_multiple(self._inner_mb, world) - self._inner_mb)
+        if (self._inner_mb + self._inner_pad) % world:
+            raise ValueError(f"inner_pad {inner_pad}: a padded minibatch of "
+                             f"{self._inner_mb + self._inner_pad} does not "
+                             f"split over {world} ranks")
+        #: this rank's slots [start, start + per) of the padded minibatch
+        self._slots = self.mesh.rows(self._inner_mb + self._inner_pad)
+        #: --shard_syn: this rank holds its rows of the set padded to a
+        #: multiple of the world
+        self._shard_syn = bool(cfg.shard_syn) and world > 1
+        self._syn_pad = (pad_to_multiple(self.n_queries, world)
+                         - self.n_queries) if self._shard_syn else 0
+        image_syn, text_syn = (self._own_syn_rows(t)
+                               for t in (image_syn, text_syn))
         self._mask = None
         if self._inner_pad:
             self._mask = torch.cat([torch.ones(self._inner_mb),
@@ -191,13 +228,34 @@ class Distiller:
     def _resid_pack(self, t: torch.Tensor) -> torch.Tensor:
         return t.to(self._resid_dt) if self._resid_dt is not None else t
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+    def _generator(self, seed: int):
+        """The generator of one inner step's tower; on a mesh a
+        :class:`RowShard` of it over the rank's slots."""
+        g = torch.Generator(device=self.device).manual_seed(int(seed))
+        if self.mesh.world == 1:
+            return g
+        return RowShard(g, self._slots[0], self._inner_mb)
+
+    def _own_syn_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Whole-set rows -> what this rank holds (all of them, or under
+        --shard_syn its rows of the padded set)."""
+        if not self._shard_syn:
+            return t
+        if self._syn_pad:
+            t = torch.cat([t, t.new_zeros((self._syn_pad,) + t.shape[1:])])
+        return col.slice_rows(t, self.mesh).detach().clone()
+
+    def _whole_syn(self, t: torch.Tensor) -> torch.Tensor:
+        """What this rank holds -> the whole set (padded under
+        --shard_syn; a collective)."""
+        return col.all_gather_rows(t, self.mesh) if self._shard_syn else t
 
     def _closs(self, thi, tht, x, y, lr_i, seeds) -> torch.Tensor:
         """Symmetric InfoNCE of the two students on one minibatch; params
         cast to the inner dtype inside the graph, so gradients reach the
         float32 carry through the cast."""
+        mesh = self.mesh
+        thi, tht = col.copy_to_ranks(thi, mesh), col.copy_to_ranks(tht, mesh)
         pi = self._img.unflatten(thi.to(self.inner_dtype))
         pt = self._txt.unflatten(tht.to(self.inner_dtype))
         f = functional_call(self.model.image_encoder, pi, (x,),
@@ -206,8 +264,8 @@ class Distiller:
         g = functional_call(self.model.text_projection, pt, (y,),
                             {"train": True,
                              "generator": self._generator(seeds[1])})
-        f = l2_normalize(f.to(self.out_dtype))
-        g = l2_normalize(g.to(self.out_dtype))
+        f = col.gather_rows(l2_normalize(f.to(self.out_dtype)), mesh)
+        g = col.gather_rows(l2_normalize(g.to(self.out_dtype)), mesh)
         scale = RAW_LOG_SCALE if self.cfg.inner_scale == "fixed" else lr_i
         logits = scale * (f @ g.T)
         if self._mask is None:
@@ -248,6 +306,7 @@ class Distiller:
                     seeds, create_graph: bool):
         if self._inner_pad:
             idx = torch.cat([idx, idx[:1].expand(self._inner_pad)])
+        idx = idx[self._slots[0]:self._slots[1]]
         x = image_syn[idx].to(self.inner_dtype)
         y = text_syn[idx].to(self.inner_dtype)
         if self._use_fr:
@@ -312,15 +371,33 @@ class Distiller:
         traces = [g + 0.5 * t for g, t in zip(grads, traces)]
         return [-lr * t for t in traces], traces
 
+    def _meta_grads(self, img_th0, txt_th0, img_tgt, txt_tgt, idx_seq,
+                    seeds):
+        """-> (loss, (img_loss, txt_loss), [g_img, g_txt, g_lr_img,
+        g_lr_txt]) at the current state; on a mesh the two set gradients
+        are this rank's slots' part (over the whole, padded set), the LR
+        gradients whole."""
+        st = self.state
+        leaves = [t.detach().requires_grad_() for t in
+                  (self._whole_syn(st.image_syn), self._whole_syn(st.text_syn),
+                   st.syn_lr_img, st.syn_lr_txt)]
+        loss, aux = self.grand_loss(*leaves, img_th0, txt_th0, img_tgt,
+                                    txt_tgt, idx_seq, seeds)
+        return loss.detach(), aux, list(torch.autograd.grad(loss, leaves))
+
     def _outer_update(self, img_th0, txt_th0, img_tgt, txt_tgt, idx_seq,
                       seeds) -> Dict[str, torch.Tensor]:
-        cfg, st = self.cfg, self.state
-        leaves = [t.detach().requires_grad_() for t in
-                  (st.image_syn, st.text_syn, st.syn_lr_img, st.syn_lr_txt)]
-        loss, (img_loss, txt_loss) = self.grand_loss(
-            *leaves, img_th0, txt_th0, img_tgt, txt_tgt, idx_seq, seeds)
-        g_img, g_txt, g_li, g_lt = torch.autograd.grad(loss, leaves)
+        cfg, st, mesh = self.cfg, self.state, self.mesh
+        loss, (img_loss, txt_loss), grads = self._meta_grads(
+            img_th0, txt_th0, img_tgt, txt_tgt, idx_seq, seeds)
+        g_img, g_txt, g_li, g_lt = grads
         with torch.no_grad():
+            # each rank's meta-gradient holds its slots' rows: sum them
+            # (this rank's rows of the sum under --shard_syn); the LR
+            # gradients are whole on every rank already
+            reduce = (col.reduce_scatter_rows if self._shard_syn
+                      else col.all_reduce_sum)
+            g_img, g_txt = reduce(g_img, mesh), reduce(g_txt, mesh)
             if cfg.text_only:
                 g_img, g_li = torch.zeros_like(g_img), torch.zeros_like(g_li)
             if cfg.image_only:
@@ -334,7 +411,7 @@ class Distiller:
                 syn_lr_img=st.syn_lr_img + u_li,
                 syn_lr_txt=st.syn_lr_txt + u_lt,
                 mom_img=m_img, mom_txt=m_txt, mom_lr=tuple(m_lr))
-        return {"grand_loss": loss.detach(), "img_param_loss": img_loss.detach(),
+        return {"grand_loss": loss, "img_param_loss": img_loss.detach(),
                 "txt_param_loss": txt_loss.detach(),
                 "syn_lr_img_grad": g_li, "syn_lr_txt_grad": g_lt,
                 "syn_lr_img_pre": st.syn_lr_img, "syn_lr_txt_pre": st.syn_lr_txt,
@@ -388,9 +465,36 @@ class Distiller:
                          for _ in range(self.cfg.syn_steps)])
 
     def syn_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
-        """(image_syn, text_syn) host copies."""
-        return (self.state.image_syn.cpu().numpy().copy(),
-                self.state.text_syn.cpu().numpy().copy())
+        """(image_syn, text_syn) host copies of the whole set, pad rows
+        stripped (a collective on a mesh)."""
+        st = self.whole_state()
+        return (st.image_syn.cpu().numpy().copy(),
+                st.text_syn.cpu().numpy().copy())
+
+    def whole_state(self) -> DistillState:
+        """The state with the whole synthetic set and its momentum, pad
+        rows stripped: what a checkpoint holds (a collective on a mesh)."""
+        st, n = self.state, self.n_queries
+
+        def whole(t):
+            return self._whole_syn(t)[:n]
+
+        return dataclasses.replace(
+            st, image_syn=whole(st.image_syn), text_syn=whole(st.text_syn),
+            mom_img=whole(st.mom_img), mom_txt=whole(st.mom_txt))
+
+    def set_whole_state(self, st: DistillState) -> None:
+        """Take a state of the whole set (``n_queries`` rows): every rank
+        keeps what it holds, re-padded to this world's pad (exact: pad rows
+        are never indexed)."""
+        for t in (st.image_syn, st.text_syn, st.mom_img, st.mom_txt):
+            if t.shape[0] != self.n_queries:
+                raise ValueError(f"a state of {t.shape[0]} rows for "
+                                 f"num_queries={self.n_queries}")
+        own = self._own_syn_rows
+        self.state = dataclasses.replace(
+            st, image_syn=own(st.image_syn), text_syn=own(st.text_syn),
+            mom_img=own(st.mom_img), mom_txt=own(st.mom_txt))
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from ..config import Config
 from ..data.pipeline import ArrayPairLoader
 from ..models.clip_model import VLBiEncoder
 from ..ops.contrastive import FIXED_LOGIT_SCALE, l2_normalize
+from ..parallel.mesh import SINGLE, Mesh
 from .expert import BiEncoderTrainer, ParallelExpertTrainer, StateDict
 
 
@@ -224,23 +225,28 @@ def evaluate_synset_parallel(num_eval: int, model: VLBiEncoder,
                              images_train: np.ndarray,
                              texts_train: np.ndarray, testloader,
                              cfg: Config, bert_test_embed,
-                             reuse: Optional[dict] = None
+                             reuse: Optional[dict] = None,
+                             mesh: Optional[Mesh] = None
                              ) -> Tuple[List[List[float]], List[dict]]:
     """The ``num_eval`` synset evaluations through one
     :class:`~.expert.ParallelExpertTrainer`: model ``j`` starts from
     ``variables_list[j]`` with batch order and dropout from ``cfg.seed +
     j``, the streams ``evaluate_synset(it_eval=j)`` uses, so each result
     equals the sequential path's.  -> (acc lists, metrics), one each per
-    model.  ``reuse`` as in :func:`evaluate_synset`."""
+    model.  ``reuse`` as in :func:`evaluate_synset`.  ``mesh``: the
+    students split over its ranks (every rank calls; each gets every
+    result), as the JAX function shards them over ``data``."""
     seeds = [cfg.seed + j for j in range(num_eval)]
     trainer = (reuse or {}).get("trainer")
-    if trainer is not None and trainer.k == num_eval:
+    if (trainer is not None and trainer.k == num_eval
+            and trainer.mesh == (mesh or SINGLE)):
         trainer.reset(list(variables_list), seeds=seeds,
                       lr_img=cfg.lr_net, lr_txt=cfg.lr_net)
     else:
         trainer = ParallelExpertTrainer(
             model, list(variables_list), lr_img=cfg.lr_net,
-            lr_txt=cfg.lr_net, momentum=0.9, weight_decay=5e-4, seeds=seeds)
+            lr_txt=cfg.lr_net, momentum=0.9, weight_decay=5e-4, seeds=seeds,
+            mesh=mesh)
         if reuse is not None:
             reuse["trainer"] = trainer
     loaders = [ArrayPairLoader(images_train, texts_train,
@@ -249,7 +255,7 @@ def evaluate_synset_parallel(num_eval: int, model: VLBiEncoder,
     acc_hist = [trainer.train_epoch_captions(loaders, lambda t: t)[1]
                 for _ in range(int(cfg.epoch_eval_train) + 1)]
     acc_lists = [[float(a[j]) for a in acc_hist] for j in range(num_eval)]
-    val_results = [retrieval_eval(testloader, trainer.model_for(j),
-                                  bert_test_embed, cfg.k_test)
-                   for j in range(num_eval)]
+    val_results = [trainer.on_owner(j, lambda t: retrieval_eval(
+        testloader, t.model, bert_test_embed, cfg.k_test))
+        for j in range(num_eval)]
     return acc_lists, val_results

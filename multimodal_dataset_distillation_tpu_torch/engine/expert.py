@@ -11,6 +11,16 @@ Dropout, DropPath and the ``--device_augment`` plan draw from one
 so one seed gives one run.  Loss and
 accuracy stay on the device until the end of an epoch, which reads them
 once.
+
+Data parallelism (a ``mesh`` of :mod:`..parallel.mesh`), the JAX
+trainers' mesh path: :class:`BiEncoderTrainer` takes its rows of each
+global batch, computes the global contrastive loss over the gathered
+embeddings, sums the parameter gradients over the ranks and takes
+BatchNorm's moments over the global batch; its dropout, drop-path and
+augment draws are the global batch's, cut to its rows
+(:class:`~..parallel.mesh.RowShard`), so a step at any world is the
+one-rank step.  :class:`ParallelExpertTrainer` splits its K models over
+the ranks, as the JAX package shards K over ``data``.
 """
 
 from __future__ import annotations
@@ -24,7 +34,11 @@ from torch.func import functional_call
 
 from ..data.transforms import CLIP_MEAN, CLIP_STD
 from ..models.clip_model import VLBiEncoder, VLBiEncoderTrainableText
+from ..models.layers import sync_batchnorm
+from ..ops.contrastive import FIXED_LOGIT_SCALE, contrastive_loss_and_acc
 from ..ops.randaugment_device import random_augment
+from ..parallel import collectives as col
+from ..parallel.mesh import SINGLE, Mesh, RowShard
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -72,6 +86,11 @@ class BiEncoderTrainer:
     crops, and each step draws a RandAugment(2, 5) plan from the trainer's
     generator (before any dropout draw), augments on the device, applies
     the CLIP normalisation and only then the bfloat16 cast.
+
+    ``mesh``: data parallelism over its ranks; each takes its equal share
+    of the rows of every global batch (``train_batch`` gets those rows)
+    and the model, loaded with the same ``variables`` on every rank,
+    stays the same on every rank.
     """
 
     #: the submodule the text optimizer steps and the text snapshot holds
@@ -81,11 +100,14 @@ class BiEncoderTrainer:
                  *, lr_img: float, lr_txt: float, momentum: float = 0.0,
                  weight_decay: float = 0.0, seed: int = 0,
                  compute_dtype: str = "float32",
-                 device_augment: bool = False):
+                 device_augment: bool = False, mesh: Optional[Mesh] = None):
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {compute_dtype!r}: float32 or "
                              f"bfloat16")
         self.model = model
+        self.mesh = mesh or SINGLE
+        if self.mesh.world > 1:
+            sync_batchnorm(model, self.mesh)
         self.device = next(model.parameters()).device
         self.compute_dtype = compute_dtype
         self.device_augment = device_augment
@@ -123,17 +145,39 @@ class BiEncoderTrainer:
             getattr(self.model, self.text_tower).parameters(), self.lr_txt,
             momentum, weight_decay)
 
+    def _draws(self, n: int):
+        """The generator of a step on ``n`` local rows: on a mesh a
+        :class:`RowShard` of the global batch."""
+        if self.mesh.world == 1:
+            return self.generator
+        return RowShard(self.generator, self.mesh.rank * n,
+                        n * self.mesh.world)
+
+    def _rows(self, n: int) -> int:
+        """The global batch's rows for ``n`` local ones."""
+        return n * self.mesh.world
+
     def _loss(self, images: torch.Tensor, texts: torch.Tensor):
-        kw = {"train": True, "generator": self.generator}
+        """The global batch's contrastive loss and accuracy: this rank's
+        rows embedded, the embeddings gathered over the ranks."""
+        m, gen = self.model, self._draws(len(images))
         if self.compute_dtype == "float32":
-            return self.model(images, texts, **kw)
-        bf16 = torch.bfloat16
-        params = {f"image_encoder.{n}": p.to(bf16) for n, p in
-                  self.model.image_encoder.named_parameters()}
-        params.update({f"text_projection.{n}": p.to(bf16).float() for n, p in
-                       self.model.text_projection.named_parameters()})
-        return functional_call(self.model, params, (images.to(bf16), texts),
-                               kw)
+            img = m.encode_image(images, True, gen)
+            txt = m.project_text(texts, True, gen)
+        else:
+            bf16 = torch.bfloat16
+            img = functional_call(
+                m.image_encoder, {n: p.to(bf16) for n, p in
+                                  m.image_encoder.named_parameters()},
+                (images.to(bf16), True, gen))
+            if m.image_projection is not None:
+                img = m.image_projection(img, True, gen)
+            txt = functional_call(
+                m.text_projection, {n: p.to(bf16).float() for n, p in
+                                    m.text_projection.named_parameters()},
+                (texts, True, gen))
+        img, txt = (col.gather_rows(t.float(), self.mesh) for t in (img, txt))
+        return contrastive_loss_and_acc(img, txt, FIXED_LOGIT_SCALE)
 
     def train_batch(self, images, text_feats
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -149,7 +193,7 @@ class BiEncoderTrainer:
         images = torch.as_tensor(images, dtype=torch.float32,
                                  device=self.device)
         if self.device_augment:
-            images = random_augment(images, self.generator)
+            images = random_augment(images, self._draws(len(images)))
             images = (images / 255.0 - self._mean) / self._std
         return images
 
@@ -159,14 +203,27 @@ class BiEncoderTrainer:
         self.opt_img.zero_grad(set_to_none=True)
         self.opt_txt.zero_grad(set_to_none=True)
         loss.backward()
+        self._sum_grads()
         self.opt_img.step()
         self.opt_txt.step()
         return loss.detach(), acc
 
+    def _sum_grads(self) -> None:
+        """Each rank's gradients are its rows' part of the global loss's:
+        sum them over the ranks (one flat all-reduce)."""
+        if self.mesh.world == 1:
+            return
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        flat = col.all_reduce_sum(
+            torch.cat([p.grad.reshape(-1) for p in params]), self.mesh)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad.copy_(g.view_as(p.grad))
+
     def train_epoch_arrays(self, loader) -> Tuple[float, float]:
         """One epoch over an ArrayPairLoader (synthetic-set training);
         ``epoch`` (epoch_original.py:20-62) with distill=True."""
-        return _epoch_means([(*self.train_batch(images, texts), len(images))
+        return _epoch_means([(*self.train_batch(images, texts),
+                              self._rows(len(images)))
                              for images, texts in loader])
 
     def train_epoch_captions(self, loader, caption_to_embed: Callable
@@ -175,7 +232,7 @@ class BiEncoderTrainer:
         ``epoch`` with distill=False."""
         return _epoch_means([
             (*self.train_batch(batch[0], caption_to_embed(batch[1])),
-             len(batch[0])) for batch in loader])
+             self._rows(len(batch[0]))) for batch in loader])
 
     # ---- parameter snapshots (buffer.py:67-68,94-95): registration order
 
@@ -198,21 +255,35 @@ class ParallelExpertTrainer:
     same batches (the parity the JAX class's vmap promises).  The JAX
     vmap takes XLA's conv for the grouped 3x3 sites; here every model's
     sites stay on the kernels.
+
+    ``mesh``: the K models split over its ranks in contiguous blocks (as
+    the JAX class shards K over ``data``); rank r trains the models of
+    :attr:`mine` on their own batch streams.  Per-model reads
+    (:meth:`on_owner`, the snapshots) run on the model's rank and reach
+    every rank; the epoch's means are gathered.  Every rank calls each
+    method in the same order.
     """
 
     def __init__(self, model: VLBiEncoder, variables_list: Sequence[StateDict],
                  *, lr_img: float, lr_txt: float, seeds: Sequence[int],
                  momentum: float = 0.0, weight_decay: float = 0.0,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32", mesh: Optional[Mesh] = None):
         self.k = len(variables_list)
         if len(seeds) != self.k:
             raise ValueError(f"{len(seeds)} seeds for {self.k} models")
-        self.trainers = [
-            BiEncoderTrainer(copy.deepcopy(model), v, lr_img=lr_img,
-                             lr_txt=lr_txt, momentum=momentum,
-                             weight_decay=weight_decay, seed=s,
-                             compute_dtype=compute_dtype)
-            for v, s in zip(variables_list, seeds)]
+        self.mesh = mesh or SINGLE
+        self.owner = np.concatenate([
+            np.full(len(b), r, int) for r, b in enumerate(
+                np.array_split(np.arange(self.k), self.mesh.world))])
+        #: the models this rank trains
+        self.mine = [j for j in range(self.k)
+                     if self.owner[j] == self.mesh.rank]
+        self.trainers = {
+            j: BiEncoderTrainer(copy.deepcopy(model), variables_list[j],
+                                lr_img=lr_img, lr_txt=lr_txt,
+                                momentum=momentum, weight_decay=weight_decay,
+                                seed=seeds[j], compute_dtype=compute_dtype)
+            for j in self.mine}
 
     def reset(self, variables_list: Sequence[StateDict], *,
               seeds: Sequence[int], lr_img: Optional[float] = None,
@@ -222,24 +293,29 @@ class ParallelExpertTrainer:
             raise ValueError(f"reset of {self.k} models with "
                              f"{len(variables_list)} inits, {len(seeds)} "
                              f"seeds")
-        for t, v, s in zip(self.trainers, variables_list, seeds):
-            t.reset(v, seed=s, lr_img=lr_img, lr_txt=lr_txt)
+        for j, t in self.trainers.items():
+            t.reset(variables_list[j], seed=seeds[j], lr_img=lr_img,
+                    lr_txt=lr_txt)
 
     def train_batch(self, images, text_feats
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``images[j]`` (B, H, W, C) and ``text_feats[j]`` (B, D) for each
-        model j -> (K,) losses and accs on the device."""
-        out = [t.train_batch(images[j], text_feats[j])
-               for j, t in enumerate(self.trainers)]
+        """``images[i]`` (B, H, W, C) and ``text_feats[i]`` (B, D) for the
+        i-th model of :attr:`mine` -> losses and accs on the device, one
+        per model of :attr:`mine`."""
+        out = [self.trainers[j].train_batch(images[i], text_feats[i])
+               for i, j in enumerate(self.mine)]
+        if not out:
+            return torch.zeros(0), torch.zeros(0)
         return (torch.stack([loss for loss, _ in out]),
                 torch.stack([acc for _, acc in out]))
 
     def train_epoch_captions(self, loaders, caption_to_embed: Callable
                              ) -> Tuple[np.ndarray, np.ndarray]:
-        """One epoch: ``loaders`` holds one batch stream per model.  -> (K,)
-        mean losses and accs, read from the device at the epoch's end."""
+        """One epoch: ``loaders`` holds one batch stream per model (this
+        rank reads those of :attr:`mine`).  -> (K,) mean losses and accs,
+        read from the device at the epoch's end and gathered."""
         per = []
-        for batches in zip(*loaders):
+        for batches in zip(*[loaders[j] for j in self.mine]):
             sizes = {len(b[0]) for b in batches}
             if len(sizes) != 1:
                 raise ValueError(
@@ -250,21 +326,32 @@ class ParallelExpertTrainer:
                                          [caption_to_embed(b[1])
                                           for b in batches])
             per.append((loss, acc, sizes.pop()))
-        means = [_epoch_means([(loss[j], acc[j], n) for loss, acc, n in per])
-                 for j in range(self.k)]
-        return (np.array([m[0] for m in means]),
-                np.array([m[1] for m in means]))
+        means = {j: _epoch_means([(loss[i], acc[i], n)
+                                  for loss, acc, n in per])
+                 for i, j in enumerate(self.mine)}
+        for part in col.all_gather_object(means, self.mesh):
+            means.update(part)
+        return (np.array([means[j][0] for j in range(self.k)]),
+                np.array([means[j][1] for j in range(self.k)]))
 
     # ---- per-model views / snapshots ----
 
     def model_for(self, k: int) -> VLBiEncoder:
+        """Model ``k`` (on its rank only)."""
         return self.trainers[k].model
 
+    def on_owner(self, k: int, fn: Callable[[BiEncoderTrainer], object]):
+        """``fn(trainer of model k)`` run on the model's rank, the result
+        on every rank (picklable)."""
+        mine = self.trainers[k] if k in self.trainers else None
+        return col.broadcast_object(None if mine is None else fn(mine),
+                                    self.mesh, src=int(self.owner[k]))
+
     def snapshot_image_params(self, k: int) -> List[np.ndarray]:
-        return self.trainers[k].snapshot_image_params()
+        return self.on_owner(k, BiEncoderTrainer.snapshot_image_params)
 
     def snapshot_text_params(self, k: int) -> List[np.ndarray]:
-        return self.trainers[k].snapshot_text_params()
+        return self.on_owner(k, BiEncoderTrainer.snapshot_text_params)
 
 
 class TrainableTextTrainer(BiEncoderTrainer):

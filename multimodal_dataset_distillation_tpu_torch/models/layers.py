@@ -5,7 +5,9 @@ Counterpart of ``multimodal_dataset_distillation_tpu/models/layers.py``
 which the towers keep channels-last in memory so that a permute to NHWC is
 free; parameters use timm's / torchvision's names, shapes and
 registration order.  Train-mode randomness (DropPath, Dropout) draws from
-an explicit ``torch.Generator`` passed to ``forward``.
+an explicit ``torch.Generator`` passed to ``forward``; under data
+parallelism a :class:`~..parallel.mesh.RowShard` of it, which draws the
+whole batch's mask and keeps the rank's rows.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from torch import nn
 from ..ops import fused_jvp
 from ..ops import s2d as _s2d
 from ..ops.gconv import gconv3x3
+from ..parallel import collectives as col
+from ..parallel.mesh import SINGLE, rows_of
 
 # Expected gain of x -> act(x) under x ~ N(0, 1) (Brock et al. 2021).
 NONLIN_GAMMA = {
@@ -131,11 +135,17 @@ class BatchNorm(nn.Module):
     running averages stay float32.  Names are torchvision's: parameters
     ``weight``/``bias`` (flax ``scale``/``bias``), buffers
     ``running_mean``/``running_var`` (flax ``batch_stats`` ``mean``/``var``),
-    so they are not part of ``parameters()``, as in the reference."""
+    so they are not part of ``parameters()``, as in the reference.
+
+    ``mesh`` (set by a data-parallel trainer, :func:`sync_batchnorm`): the
+    train-mode moments are the global batch's, as GSPMD gives them in the
+    JAX package: the sums of x and x^2 are summed over the ranks, in the
+    backward too."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-5):
         super().__init__()
+        self.mesh = SINGLE
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -144,9 +154,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
-        if train:
+        if train and self.mesh.world > 1:
+            sums = col.synced_sum(torch.stack(
+                (xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)))),
+                self.mesh)
+            count = x.shape[0] * x.shape[2] * x.shape[3] * self.mesh.world
+            mean = sums[0] / count
+            var = (sums[1] / count - mean * mean).clamp_min(0)
+        elif train:
             mean = xf.mean(dim=(0, 2, 3))
             var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0)
+        if train:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean.detach())
@@ -157,6 +175,14 @@ class BatchNorm(nn.Module):
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias.float()[:, None, None]
         return y.to(promoted(x, self.weight, self.bias)[0].dtype)
+
+
+def sync_batchnorm(model: nn.Module, mesh) -> None:
+    """Every :class:`BatchNorm` of ``model`` takes its train-mode moments
+    over ``mesh``'s ranks."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.mesh = mesh
 
 
 class GroupNorm(nn.GroupNorm):
@@ -190,7 +216,7 @@ def dropout(x: torch.Tensor, rate: float,
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = rows_of(torch.rand, x.shape, generator, x.device)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -292,6 +318,6 @@ class DropPath(nn.Module):
         if generator is None:
             raise ValueError("train-mode DropPath needs a torch.Generator")
         keep = 1.0 - self.rate
-        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                       generator=generator, device=x.device)
+        u = rows_of(torch.rand, (x.shape[0],) + (1,) * (x.dim() - 1),
+                    generator, x.device)
         return x * (u < keep).to(x.dtype) / keep

@@ -199,14 +199,21 @@ class AugmentPlan(NamedTuple):
 def sample_augment_plan(batch: int, n: int,
                         generator: torch.Generator) -> AugmentPlan:
     """Draw a RandomAugment(n, .) plan for ``batch`` images from
-    ``generator``, on the generator's device."""
+    ``generator``, on the generator's device; through a
+    :class:`~..parallel.mesh.RowShard`, the whole batch's plan cut to the
+    rank's rows."""
+    from ..parallel.mesh import rows_of
+
     dev = generator.device
     shape = (batch, n)
+
+    def ops(size, **kw):
+        return torch.randint(0, len(VL_DEVICE_OPS), size, **kw)
+
     return AugmentPlan(
-        torch.randint(0, len(VL_DEVICE_OPS), shape, generator=generator,
-                      device=dev),
-        torch.rand(shape, generator=generator, device=dev) < 0.5,
-        torch.rand(shape, generator=generator, device=dev) < 0.5)
+        rows_of(ops, shape, generator, dev),
+        rows_of(torch.rand, shape, generator, dev) < 0.5,
+        rows_of(torch.rand, shape, generator, dev) < 0.5)
 
 
 def apply_augment_plan(images: torch.Tensor, plan: AugmentPlan,

@@ -109,6 +109,22 @@ class RunLogger:
         self._file.close()
 
 
+class SilentLogger:
+    """A :class:`RunLogger` that writes nothing: the logger of a
+    data-parallel rank other than 0 (``name`` is rank 0's run name)."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def log(self, *args, **kw) -> None:
+        pass
+
+    log_image = log_histogram = log_html = log
+
+    def finish(self) -> None:
+        pass
+
+
 class SmoothedValue:
     """Windowed median / average tracker (utils.py:714-773 analog)."""
 

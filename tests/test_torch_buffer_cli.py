@@ -237,18 +237,30 @@ def test_jax_reads_port_buffers_and_port_distills_them(runs, monkeypatch):
     assert torch.isfinite(distiller.state.image_syn).all()
 
 
-@pytest.mark.parametrize("flag,match", [
-    (dict(mesh_shape=(2,)), "--mesh_shape"),
-    (dict(distributed=True), "--distributed")])
-def test_unported_flags_raise_before_data(tmp_path, monkeypatch, flag, match):
+@pytest.mark.parametrize("flag,ranks,error,match", [
+    # a mesh that does not multiply to the world (one process: world 1)
+    (dict(mesh_shape=(2,)), 1, ValueError, "multiplies to 2"),
+    # two ranks on one card without gloo asked for: NCCL would refuse
+    (dict(distributed=True, device="cuda"), 2, RuntimeError,
+     "share 1 card")])
+def test_unported_flags_raise_before_data(tmp_path, monkeypatch, flag, ranks,
+                                          error, match):
+    """The multi-rank start-up checks raise before any data is read or
+    any rank waits on another."""
     def no_data(cfg):
         raise AssertionError("data was read before the flag check")
 
     monkeypatch.setattr(pcli, "get_dataset", no_data)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match) as err:
-        pcli.main(Config(**{**KW, **flag, "device": "cpu"}))
-    assert "ROADMAP A, item 1" in str(err.value)
+    monkeypatch.delenv("MDD_DIST_BACKEND", raising=False)
+    for k, v in dict(WORLD_SIZE=ranks, RANK=0, LOCAL_RANK=0,
+                     LOCAL_WORLD_SIZE=ranks).items():
+        monkeypatch.setenv(k, str(v))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(error, match=match):
+        pcli.main(Config(**{**KW, "device": "cpu", **flag}))
+    assert not torch.distributed.is_initialized()
 
 
 NEW_FLAGS = [dict(zca=True), dict(text_encoder="clip"), dict(stem_s2d=True),

@@ -427,14 +427,27 @@ def test_port_buffers_load_in_jax_and_back(tmp_path):
             np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("flag", [dict(mesh_shape=(2,))])
-def test_queued_flags_raise_at_start_up(tmp_path, monkeypatch, flag):
+@pytest.mark.parametrize("flag,error,match", [
+    # one process that sees two cards: launch one per card
+    (dict(device="cuda"), RuntimeError, r"torchrun --nproc_per_node=2"),
+    # the JAX package's model axis computes nothing different: refused
+    (dict(mesh_shape=(1, 2), mesh_axes=("data", "model")), ValueError,
+     "'model' of size 2")])
+def test_queued_flags_raise_at_start_up(tmp_path, monkeypatch, flag, error,
+                                        match):
+    """Start-up checks of a multi-card launch raise before any data is
+    read."""
     def no_data(cfg):
         raise AssertionError("data was read before the flag check")
 
     monkeypatch.setattr(pcli, "get_dataset", no_data)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A, item 1\d"):
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(error, match=match):
         pcli.main(_cfg(tmp_path, **flag))
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("flag", [

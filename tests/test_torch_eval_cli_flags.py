@@ -83,11 +83,11 @@ def test_missing_card_raises_before_data(no_data, monkeypatch):
     ["--mesh_shape", "2"], ["--stem_s2d", "True"]])
 def test_flags_the_jax_eval_never_reads_are_ignored(no_data, extra):
     """The eval CLI, like the JAX one, does not read these and goes on to
-    its data.  ``check_supported`` refuses them for the distill CLI, all
-    but ``--device_augment``, which the distill CLI runs too."""
+    its data.  ``check_supported`` refuses a ``--mesh_shape`` that does not
+    fit the world for the distill CLI; it runs the others too."""
     cfg = _cfg(extra)
     if extra[0] == "--mesh_shape":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="multiplies to 2"):
             eval_distilled.check_supported(cfg)
     else:   # the distill CLI runs these (the s2d stem, ZCA, the augment)
         eval_distilled.check_supported(cfg)
