@@ -5,8 +5,11 @@ on one NVIDIA card.
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` (``/usr/local/cuda``) and the repository
-beside this file; exits non-zero, and prints no result, otherwise.  Phases,
-each of which raises on failure:
+beside this file; exits non-zero, and prints no result, otherwise.  It also
+refuses to start while ``MDD_PALLAS_GCONV``, ``MDD_STEM_S2D`` or
+``MDD_FUSED_JVP`` is set: each phase pins its routes through the config,
+and an inherited override would turn a kernel-against-``F.conv2d`` check
+into kernels against kernels.  Phases, each of which raises on failure:
 
 1. Build the grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
    ``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores,
@@ -35,7 +38,11 @@ each of which raises on failure:
    JAX defaults (``fr_bwd="rof"``: grad of jvp, the merged-tangent conv),
    kernels on, dropout and DropPath active; launch counters read around
    it: every grouped conv, its tangent convs, dgrad and wgrad on the
-   tensor-core kernels.
+   tensor-core kernels.  Then ``MDD_PALLAS_GCONV`` (``ops/gconv.py::
+   configure``): the headline tower built with ``pallas_gconv=True`` under
+   ``MDD_PALLAS_GCONV=0``, with ``False`` under ``=1`` and with ``False``
+   and the variable unset, one bf16 forward pass each: exactly 0, 19 (one
+   per grouped site) and 0 ``gconv3x3_fwd_tc`` launches.
 4. One float32 outer step with the kernels (the TF32 forward and wgrad;
    counters read around it) against the same step on
    ``F.conv2d`` (TF32 off), from the same seed and state.
@@ -239,6 +246,20 @@ TOWER_SITES = {"nfnet": 19, "nf_regnet": 16}
 # NF-RegNet-B1's sites at 224^2: (H, C, groups) -> count
 REGNET_SITES = {(56, 88, 11): 1, (28, 184, 23): 3, (14, 360, 45): 6,
                 (7, 736, 92): 6}
+
+
+#: the port's environment overrides of three ``Config`` fields.  Every
+#: phase pins its route through ``cfg`` (phases 4, 6, 9 and 10 hold the
+#: kernels against ``F.conv2d`` by building with ``pallas_gconv=False``),
+#: so an inherited override would turn a check into kernels against
+#: kernels without a word: the script refuses to start with one set.
+ENV_OVERRIDES = ("MDD_PALLAS_GCONV", "MDD_STEM_S2D", "MDD_FUSED_JVP")
+
+
+def env_overrides() -> list:
+    """The variables of :data:`ENV_OVERRIDES` set in the environment, empty
+    ones included."""
+    return [k for k in ENV_OVERRIDES if k in os.environ]
 
 
 def site_launches(encoder: str, dtype: str, fwd: int, wgrad: int) -> dict:
@@ -638,6 +659,69 @@ def main_path(gc, cfg, steps: int = 3):
     image_syn, text_syn = d.syn_arrays()
     return out, (image_syn, text_syn, float(st.syn_lr_img),
                  float(st.syn_lr_txt))
+
+
+#: phase 3's check of ``MDD_PALLAS_GCONV``: (``cfg.pallas_gconv``, the
+#: variable's value or None for unset) -> whether the tower takes the kernels
+GCONV_ENV_CASES = ((True, "0", False), (False, "1", True), (False, None, False))
+
+
+def gconv_env_check(gc, Config, batch: int = 8, device: str = "cuda"
+                    ) -> list:
+    """Build the headline tower (NFNet-L0 at 224^2, seeded weights, bf16)
+    under each case of :data:`GCONV_ENV_CASES` and run one forward pass of
+    ``batch`` images: its 19 grouped sites launch ``gconv3x3_fwd_tc`` once
+    each when the variable (or, unset, the config) asks for the kernels,
+    and no kernel launches otherwise.  ``os.environ`` is restored after
+    each case.  -> the ``gconv3x3_fwd_tc`` count of each case."""
+    from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
+        build_bi_encoder, init_bi_encoder)
+    from multimodal_dataset_distillation_tpu_torch.models.layers import WSConv
+
+    weights = init_bi_encoder(build_bi_encoder(
+        main_cfg(Config), device="cpu"), 0).image_encoder.state_dict()
+    x = torch.randn(batch, 224, 224, 3, device=device,
+                    generator=torch.Generator(device).manual_seed(0)
+                    ).to(torch.bfloat16)
+    counts = []
+    for flag, env, on in GCONV_ENV_CASES:
+        prev = os.environ.pop("MDD_PALLAS_GCONV", None)
+        if env is not None:
+            os.environ["MDD_PALLAS_GCONV"] = env
+        try:
+            cfg = main_cfg(Config, pallas_gconv=flag)
+            tower = build_bi_encoder(cfg, device=device).image_encoder
+        finally:
+            os.environ.pop("MDD_PALLAS_GCONV", None)
+            if prev is not None:
+                os.environ["MDD_PALLAS_GCONV"] = prev
+        sites = sum(m.use_gconv for m in tower.modules()
+                    if isinstance(m, WSConv))
+        if sites != (TOWER_SITES["nfnet"] if on else 0):
+            raise AssertionError(f"pallas_gconv={flag}, MDD_PALLAS_GCONV="
+                                 f"{env}: {sites} sites on the kernels")
+        tower.load_state_dict(weights)
+        tower = tower.to(torch.bfloat16)
+        gc.reset_launches()
+        with torch.no_grad():
+            y = tower(x)
+        torch.cuda.synchronize()
+        got = dict(gc.LAUNCHES)
+        want = dict.fromkeys(KERNELS, 0)
+        want["gconv3x3_fwd_tc"] = TOWER_SITES["nfnet"] if on else 0
+        if got != want:
+            raise AssertionError(
+                f"pallas_gconv={flag}, MDD_PALLAS_GCONV={env}: launches "
+                f"{got}, expected {want}")
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError("non-finite tower output")
+        counts.append(got["gconv3x3_fwd_tc"])
+        del tower, y
+    print("MDD_PALLAS_GCONV check: gconv3x3_fwd_tc per tower pass "
+          + json.dumps({f"pallas_gconv={f},MDD_PALLAS_GCONV={e}": n
+                        for (f, e, _), n in zip(GCONV_ENV_CASES, counts)}),
+          flush=True)
+    return counts
 
 
 META_GRADS = ("pixels", "texts", "lr_img", "lr_txt")
@@ -2775,6 +2859,12 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
 
 
 def main() -> int:
+    refused = env_overrides()
+    if refused:
+        print(f"chip_smoke: {', '.join(refused)} set in the environment; "
+              f"every phase pins its route through the config, so unset "
+              f"it and run again", file=sys.stderr)
+        return 4
     if len(sys.argv) > 2 and sys.argv[1] == DP_RANK_ARG:
         return dp_rank_main(sys.argv[2])
     if not (HERE / PKG / "csrc" / "gconv3x3_tc.cu").is_file():
@@ -2826,6 +2916,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = True   # the library defaults again
     cfg = main_cfg(Config)
     path, syn = main_path(gc, cfg)
+    gconv_env_check(gc, Config)
     lap("3")
     f32 = compare_f32(gc, cfg)
     lap("4")

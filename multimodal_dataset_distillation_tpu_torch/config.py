@@ -9,9 +9,10 @@ flags warned about and ignored.  ``device`` is a runtime field, not a flag.
 
 Fields the distillation step of this package reads: ``inner_dtype``,
 ``inner_scale``, ``hvp_mode``, ``fr_bwd``, ``fused_jvp`` (with the
-``MDD_FUSED_JVP`` override), ``fr_resid_dtype``, ``pallas_gconv``,
-``max_grad_norm``, ``image_only``, ``text_only``, the learning rates,
-``syn_steps``, ``mini_batch_size``, ``expert_epochs``, ``seed``.
+``MDD_FUSED_JVP`` override), ``fr_resid_dtype``, ``pallas_gconv`` (with
+the ``MDD_PALLAS_GCONV`` override), ``max_grad_norm``, ``image_only``,
+``text_only``, the learning rates, ``syn_steps``, ``mini_batch_size``,
+``expert_epochs``, ``seed``.
 
 XLA scheduling knobs with no counterpart here, kept for the shared surface
 and ignored: ``scan_unroll``, ``carry_mode``, ``remat_inner``,
@@ -155,7 +156,8 @@ class Config:
     parallel_eval: bool = True
     shard_syn: bool = True
     # grouped 3x3 stride-1 convs through the hand-written kernels
-    # (ops/gconv.py); off = F.conv2d
+    # (ops/gconv.py); off = F.conv2d; env MDD_PALLAS_GCONV=0/1 wins
+    # (ops/gconv.py::configure)
     pallas_gconv: bool = False
     stem_s2d: bool = False
     # merged-tangent conv in the "rof" jvp (ops/fused_jvp.py); env

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..config import Config
-from ..ops import s2d
+from ..ops import gconv, s2d
 from ..ops.contrastive import FIXED_LOGIT_SCALE, contrastive_loss_and_acc
 from .bert import BERT_BASE, BERT_TINY, BertConfig, BertEncoder
 from .clip_text import CLIP_TEXT_TINY
@@ -103,8 +103,10 @@ def build_bi_encoder(cfg: Config, device=None) -> VLBiEncoder:
     """Build from a :class:`Config` like the JAX ``build_bi_encoder``, on
     ``device`` (default ``cfg.device``, the card unless the config says
     otherwise); the grouped 3x3 convs take the kernels when
-    ``cfg.pallas_gconv`` is set, and the NF stems run in space-to-depth
-    form when ``cfg.stem_s2d`` is (``MDD_STEM_S2D`` wins when set).  The
+    ``cfg.pallas_gconv`` is set and the NF stems run in space-to-depth
+    form when ``cfg.stem_s2d`` is (``MDD_PALLAS_GCONV`` and
+    ``MDD_STEM_S2D`` win when set: :func:`..ops.gconv.configure`,
+    :func:`..ops.s2d.configure`).  The
     text width is the configured text encoder's (768 BERT-base, 512
     CLIP-base; 128 for either tiny tower)."""
     text_dim = cfg.text_embedding
@@ -115,7 +117,7 @@ def build_bi_encoder(cfg: Config, device=None) -> VLBiEncoder:
                         text_embedding=text_dim,
                         image_embedding=feature_dim(cfg.image_encoder,
                                                     cfg.transfer),
-                        gconv=cfg.pallas_gconv,
+                        gconv=gconv.configure(cfg),
                         only_image_projection=cfg.only_has_image_projection,
                         transfer=cfg.transfer, image_size=cfg.image_size,
                         stem_s2d=s2d.configure(cfg))
@@ -129,7 +131,7 @@ def build_trainable_text(cfg: Config, device=None) -> VLBiEncoderTrainableText:
     model = VLBiEncoderTrainableText(
         cfg.image_encoder, feature_dim(cfg.image_encoder),
         BERT_TINY if cfg.text_encoder_config == "tiny" else BERT_BASE,
-        gconv=cfg.pallas_gconv, image_size=cfg.image_size,
+        gconv=gconv.configure(cfg), image_size=cfg.image_size,
         stem_s2d=s2d.configure(cfg))
     return model.to(cfg.device if device is None else device)
 

@@ -22,7 +22,9 @@ four CUDA routes here, each built with ``nvcc`` for ``sm_90a`` into
   (other group widths, images too wide for the other kernels' tiles).
 
 :func:`use_tc`, :func:`use_tf32` and :func:`use_narrow` are the rule
-between them, by dtype and shape alone.
+between them, by dtype and shape alone.  Whether a tower's grouped convs
+come here at all is :func:`configure`'s answer: ``cfg.pallas_gconv``, or
+``MDD_PALLAS_GCONV`` when it is set.
 
 Public layout is the JAX one: NHWC activations x HWIO weights.
 
@@ -55,6 +57,8 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..utils.env import env_bool
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -113,6 +117,29 @@ _libs: Optional[_Libs] = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def configure(cfg) -> bool:
+    """Whether the towers built for ``cfg`` route their grouped 3x3 convs
+    to the kernels: ``cfg.pallas_gconv``, with ``MDD_PALLAS_GCONV=0/1``
+    winning when it is set (:func:`..utils.env.env_bool`: empty is unset).
+
+    This is the JAX ``configure`` + ``enabled`` on one device, with two
+    deliberate differences:
+
+    * no multi-device force-off.  The JAX gate turns the kernel off, even
+      against the variable, whenever more than one device is visible,
+      because GSPMD cannot partition a ``pallas_call``.  Here every rank
+      launches its own kernels on its own rows, so the value holds at any
+      world size;
+    * every CLI honours it, ``cli/eval_distilled.py`` included.  The JAX
+      eval CLI never calls ``configure``, so there ``--pallas_gconv`` does
+      nothing and only the variable acts.  The kernels compute the
+      function ``F.conv2d`` does, so only the route differs, not the
+      result.
+    """
+    env = env_bool("MDD_PALLAS_GCONV")
+    return bool(getattr(cfg, "pallas_gconv", False)) if env is None else env
 
 
 def _nvcc_cmd(src: Path, out: str, verbose: bool) -> list:

@@ -322,3 +322,50 @@ def test_quality_summary_reads_and_pools_the_eval_logs(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "r_mean distilled: 6.5000" in out and "card: H100" in out
     assert "distilled - init over 2 runs: 0.2500" in out
+
+
+def test_quality_summary_welch_compares_two_groups_of_runs(tmp_path, capsys):
+    """``--welch``: each group's per-run differences (a run given as a
+    work directory or as a ``distilled/init/random`` triple), Welch's t
+    and its Welch-Satterthwaite degrees of freedom as the closed forms
+    give them, the two-sided p, and the 5% verdict."""
+    tool = _load_summary()
+    work = tmp_path / "run"
+    work.mkdir()
+    for name, v in (("distilled", 7.0), ("init", 5.0), ("random", 5.5)):
+        (work / f"eval_{name}.log").write_text(
+            f"Evaluate_00: r_mean={v:.4f}\n"
+            f"Mean/r_mean = {v:.4f}  Std/r_mean = 0.0000\n")
+    a = [str(work), "6.5/6.0/5.0", "6.0/5.0/5.5"]
+    b = ["6.0/5.9/5.5", "6.1/6.0/5.9", "5.8/5.6/5.7", "6.2/6.0/5.6"]
+    out = tool.main(["--welch", *a, "--", *b])
+    assert out["a"][0] == {"distilled": 7.0, "init": 5.0, "random": 5.5}
+    ti = out["tests"]["init"]
+    assert np.allclose(ti["a"], [2.0, 0.5, 1.0])
+    assert np.allclose(ti["b"], [0.1, 0.1, 0.2, 0.2])
+    va = np.var(ti["a"], ddof=1) / 3
+    vb = np.var(ti["b"], ddof=1) / 4
+    assert math.isclose(ti["t"], (np.mean(ti["a"]) - np.mean(ti["b"]))
+                        / math.sqrt(va + vb), rel_tol=1e-9)
+    assert math.isclose(ti["df"], (va + vb) ** 2
+                        / (va ** 2 / 2 + vb ** 2 / 3), rel_tol=1e-9)
+    from scipy import stats
+
+    assert math.isclose(ti["p"], 2 * stats.t.sf(ti["t"], ti["df"]),
+                        rel_tol=1e-9)
+    assert 0.1 < ti["p"] < 0.2 and ti["differs"] is False
+    tr = out["tests"]["random"]
+    assert np.allclose(tr["a"], [1.5, 1.5, 0.5])
+    assert np.allclose(tr["b"], [0.5, 0.2, 0.1, 0.6])
+    assert tr["differs"] is False
+    text = capsys.readouterr().out
+    assert "distilled - init: a 1.1667 over 3 runs, b 0.1500 over 4" in text
+    mixed = tool.main([str(work), "6.5/6.0/5.0"])     # across runs
+    assert mixed["runs"][1] == {"work": "6.5/6.0/5.0", "card": None,
+                                "distilled": 6.5, "init": 6.0,
+                                "random": 5.0}
+    assert np.allclose(mixed["diffs"]["init"]["values"], [2.0, 0.5])
+    far = tool.main(["--welch", "7.0/5.0/5.0", "7.1/5.0/5.0", "6.9/5.0/5.0",
+                     "--", *b])
+    assert far["tests"]["init"]["p"] < 0.05
+    assert far["tests"]["init"]["differs"] is True

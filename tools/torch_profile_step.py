@@ -51,6 +51,8 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from multimodal_dataset_distillation_tpu_torch.config import Config  # noqa: E402
+from multimodal_dataset_distillation_tpu_torch.ops import (  # noqa: E402
+    fused_jvp, gconv, s2d)
 
 
 def kernel_class(name: str) -> str:
@@ -126,10 +128,10 @@ def main() -> int:
     out = {
         "card": chip_smoke.card_line(),
         "image_encoder": cfg.image_encoder,
-        "pallas_gconv": cfg.pallas_gconv,
-        "stem_s2d": cfg.stem_s2d,
+        "pallas_gconv": gconv.configure(cfg),
+        "stem_s2d": s2d.configure(cfg),
         "fr_bwd": cfg.fr_bwd,
-        "fused_jvp": cfg.fused_jvp,
+        "fused_jvp": fused_jvp.resolve(cfg),
         "wall_ms_per_step": plain_wall * 1e3,
         "profiled_wall_ms_per_step": wall * 1e3,
         "device_busy_ms_per_step": busy,

@@ -16,15 +16,24 @@ Usage::
 
     python tools/torch_quality_summary.py <work_dir> [name=unix_seconds ...]
     python tools/torch_quality_summary.py <work_dir> <work_dir> ...
+    python tools/torch_quality_summary.py --welch <run> ... -- <run> ...
 
 The ``name=t`` pairs are the phases' start times in order, the last one
 the end; each phase's wall time is the next start less its own.  Given
 several work directories (rehearsals at several seeds, or their copied
-logs), it prints each run's three mean r_means and card, and tests the
+logs, or a run's three mean r_means written ``distilled/init/random``),
+it prints each run's three mean r_means and card, and tests the
 order on the runs' differences, distilled less init and distilled less
 random: each difference's mean over the runs must exceed two standard
 errors of it (sample std / sqrt(runs)), so the spread between runs
 counts, not only the spread between the students of one run.
+
+``--welch`` compares two groups of rehearsals (say, the JAX package's runs
+and the port's): for each difference, distilled less init and distilled
+less random, Welch's two-sided t-test between the groups' per-run values
+(unequal variances, Welch-Satterthwaite degrees of freedom), and whether
+it rejects at 5%.  A run is a work directory, or its three mean r_means
+written ``distilled/init/random``.
 """
 
 import glob
@@ -74,20 +83,46 @@ def across(works):
     """Several rehearsals: each run's mean r_mean per set, and the order
     tested on the per-run differences of the distilled set's mean from
     the init's and the random control's."""
-    runs = [summarize(w) for w in works]
-    out = {"runs": [{"work": w, "card": r["card"],
-                     **{k: r["sets"][k]["mean"] for k in SETS}}
-                    for w, r in zip(works, runs)], "diffs": {}}
+    runs = [run_means(w) for w in works]
+    out = {"runs": [{"work": w, "card": summarize(w)["card"]
+                     if os.path.isdir(w) else None, **m}
+                    for w, m in zip(works, runs)], "diffs": {}}
     n = len(runs)
     for k in ("init", "random"):
-        d = [r["sets"]["distilled"]["mean"] - r["sets"][k]["mean"]
-             for r in runs]
+        d = [m["distilled"] - m[k] for m in runs]
         mean = sum(d) / n
         std = math.sqrt(sum((v - mean) ** 2 for v in d) / (n - 1))
         out["diffs"][k] = {"values": d, "mean": mean, "std": std,
                            "two_se": 2 * std / math.sqrt(n)}
     out["order_holds"] = all(v["mean"] > v["two_se"]
                              for v in out["diffs"].values())
+    return out
+
+
+def run_means(run):
+    """A work directory's mean r_mean per set, or a literal
+    ``distilled/init/random`` triple's."""
+    if os.path.isdir(run):
+        return {k: v["mean"] for k, v in summarize(run)["sets"].items()}
+    return dict(zip(SETS, (float(v) for v in run.split("/"))))
+
+
+def welch(runs_a, runs_b, alpha=0.05):
+    """Welch's two-sided t-test between two groups of runs, on each
+    per-run difference of the distilled set from the init and the random
+    control."""
+    from scipy import stats
+
+    groups = [[run_means(r) for r in runs] for runs in (runs_a, runs_b)]
+    out = {"a": groups[0], "b": groups[1], "tests": {}}
+    for k in ("init", "random"):
+        da, db = ([m["distilled"] - m[k] for m in g] for g in groups)
+        res = stats.ttest_ind(da, db, equal_var=False)
+        out["tests"][k] = {
+            "a": da, "b": db, "mean_a": sum(da) / len(da),
+            "mean_b": sum(db) / len(db), "t": float(res.statistic),
+            "df": float(res.df), "p": float(res.pvalue),
+            "differs": bool(res.pvalue < alpha)}
     return out
 
 
@@ -104,6 +139,16 @@ def _order(out):
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--welch"]:
+        cut = argv.index("--")
+        s = welch(argv[1:cut], argv[cut + 1:])
+        for k, v in s["tests"].items():
+            print(f"distilled - {k}: a {v['mean_a']:.4f} over {len(v['a'])} "
+                  f"runs, b {v['mean_b']:.4f} over {len(v['b'])}; Welch t "
+                  f"{v['t']:.4f}, df {v['df']:.2f}, p {v['p']:.4f}: "
+                  f"{'differs' if v['differs'] else 'no difference'} at 5%")
+        print(json.dumps(s))
+        return s
     works = [a for a in argv if "=" not in a]
     stamps = [(a.split("=")[0], float(a.split("=")[1])) for a in argv
               if "=" in a]
