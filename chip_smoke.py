@@ -11,7 +11,8 @@ refuses to start while ``MDD_PALLAS_GCONV``, ``MDD_STEM_S2D`` or
 and an inherited override would turn a kernel-against-``F.conv2d`` check
 into kernels against kernels.  Phases, each of which raises on failure:
 
-1. Build the grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
+1. Build the grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, the generic
+   route: ``mma.sync`` tensor cores on 2-D tiles, any width,
    ``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores,
    ``csrc/gconv3x3_tf32.cu``, float32 on the tensor cores, and
    ``csrc/gconv3x3_narrow.cu``, 8 channels per group in both dtypes; one
@@ -23,10 +24,10 @@ into kernels against kernels.  Phases, each of which raises on failure:
    eval students'), 128 (the expert trainer's and the test passes') and
    104 (a 1000-image test split's tail): the forward conv, the input
    gradient (the forward kernel on the rotated weight) and the weight
-   gradient; the CUDA-core kernels in float32 and bfloat16, the bf16
-   tensor-core kernels in bfloat16, the TF32 forward and wgrad in
-   float32.  The tensor-core wgrads and the TF32 forward twice, for the
-   same bits.  Hessian-vector products through the autograd Functions in
+   gradient; the generic kernels (``tc=False``) in float32 and bfloat16,
+   the bf16 tensor-core kernels in bfloat16, the TF32 forward and wgrad
+   in float32.  Every wgrad and the TF32 forward twice, for the same
+   bits.  Hessian-vector products through the autograd Functions in
    float32 (TF32 kernels) and bfloat16 (bf16 tensor-core kernels) in three
    orientations: reverse over reverse, grad of jvp (the Functions'
    forward-mode rules under dual tensors) and jvp of grad (``torch.func``).
@@ -84,7 +85,7 @@ into kernels against kernels.  Phases, each of which raises on failure:
 9. The zoo's towers (BERT-base random-init caption caches, synthetic
    data, the kernels on).  (d) first: the 8-channel kernels
    (``gconv3x3_narrow.cu``, the route the rule takes) and the generic
-   CUDA-core kernels (``tc=False``) at NF-RegNet-B1's four grouped shapes
+   kernels (``tc=False``) at NF-RegNet-B1's four grouped shapes
    (8 channels per group, 11/23/45/92 groups, 56^2 to 7^2) in float32 and
    bfloat16 at mini-batches 100, 128 and 104 against the plain versions
    (the 8-channel wgrad twice, for the same bits), timed beside cuDNN and
@@ -100,19 +101,20 @@ into kernels against kernels.  Phases, each of which raises on failure:
    memory per tower.  (b) ResNet-50 (BatchNorm) through the buffer CLI, 1
    epoch: all 53 running averages moved; the distill CLI refuses it before
    reading data.  (c) ``cli/eval_distilled.main`` on phase 3's distilled
-   set under ViT, NF-ResNet50, NF-RegNet-B1, ResNet-50, ConvNet and NFNet-L0
-   with ``--transfer``, 2 students each, on a 256 x 5 test split.
+   set under NF-RegNet-B1, ResNet-50, ConvNet and NFNet-L0 with
+   ``--transfer``, 2 students each, on a 256 x 5 test split (ViT and
+   NF-ResNet50 train their eval students in (a)).
    Launches exact in every run: NF-RegNet-B1's 16 sites on the 8-channel
    kernels in either dtype, no kernel for the towers without grouped
-   convs, and the generic CUDA-core kernels on no path.
+   convs, and the generic kernels on no path.
 10. The CLIP family, ConvNeXt, the space-to-depth stem and ZCA.  (c)
    first: an NFNet-L0 outer step at phase 4's size with ``stem_s2d``
    against the plain stem, same weights, in float64 (exact math: loss
    1e-5 relative, each meta-gradient 1e-4 relative error norm) and in
    float32 on the kernels (TF32 off; loss 1e-5, meta-gradients phase 4's
    1e-2, the float32 step's own spread on the card being ~3e-4); then
-   the bf16 headline step with and without it, in one pair of 2 timed
-   steps after a warm-up step each, medians and peaks printed,
+   the bf16 headline step with and without it, in one pair of one timed
+   step each after a warm-up step, times and peaks printed,
    each run's launches phase 3's exactly.  (a) CLIP ViT-B/32 at 224^2
    with the CLIP text tower (base, random init from the seed, 77 tokens,
    512-d caches) and (b) ConvNeXt-Tiny at 224^2 with BERT-base, each on
@@ -132,7 +134,7 @@ into kernels against kernels.  Phases, each of which raises on failure:
    ``F.conv2d`` in each mode against the others and ``hvp_mode="reverse"``
    (loss and meta-gradients 1e-9 relative error norm); the float32 step
    of phase 4 in the two other modes, held as phase 4.  (b) the bf16
-   headline step in 1 round over the modes of 2 timed steps after a
+   headline step in 1 round over the modes of 1 timed step after a
    warm-up step each: medians, ranges, peaks, each run's launches phase
    3's exactly.  (c) one profiled step per mode: device ms and launches,
    the stems' double-backward cuDNN kernels' ms, the count of
@@ -157,7 +159,7 @@ into kernels against kernels.  Phases, each of which raises on failure:
    where the machine has two).  (a) phase 4's float32 step (mb=25 padded
    to 26, ``--shard_syn``, the TF32 kernels) against the one-process step
    on the same inputs at phase 4's tolerances; (b) the bf16 headline step
-   at full width, 2 timed steps after a warm-up: both ranks' losses bit
+   at full width, 1 timed step after a warm-up: both ranks' losses bit
    for bit, each rank's launches phase 3's per step, outer steps/s and
    each rank's peak printed; (c) the distill CLI on the ranks for 2
    iterations on phase 7 (a)'s buffers (phase 7's 256-pair caches) with
@@ -166,14 +168,28 @@ into kernels against kernels.  Phases, each of which raises on failure:
    the same global batches at phase 7's 1e-4.  A rank that fails stops
    both and fails the phase.
 
-Phase 2 also times the CUDA-core kernels and the TF32 kernels in float32
+14. The slice's path at NFNet-L0's published test resolution, 288^2, in
+   float32 (the default ``train_dtype``), the kernels on.  First the
+   generic kernels at the 36-wide stage-1 shape (mini-batches 100 and
+   128, both dtypes, ``tc=False``) against the plain versions, the wgrad
+   twice for the same bits, and a stage-1 pass timed beside the bound,
+   the plain version, the TF32 forward and cuDNN (TF32 off and on).  Then
+   ``cli/buffer.main`` (1 expert x 1 epoch, 256 pairs at batch 128, a 256
+   x 5 test split) and ``cli/eval_distilled.main`` (2 students on a
+   seeded 100-pair set at 288^2, a 256 x 5 split): every forward and
+   dgrad on the TF32 forward (every site is at most 64 wide), the wgrads
+   of the 18- and 9-wide sites on the TF32 wgrad and those of the three
+   36-wide stage-1 sites (past its 32) on the generic wgrad; launches
+   exact in both runs.
+
+Phase 2 also times the generic kernels and the TF32 kernels in float32
 (the dtype of phases 4-8's eval students) beside cuDNN's float32 call with
 TF32 off and on.  Phase 2 also runs a double-backward HVP at 8 channels per
 group in both dtypes (the 8-channel kernels).
 
-Then a ``{"kernels": [...]}`` line (the 8-channel kernels' and the
-generic CUDA-core kernels' numbers at NF-RegNet-B1's sites, the latter's
-phase-2 numbers at NFNet-L0's shapes beside),
+Then a ``{"kernels": [...]}`` line (the 8-channel kernels' numbers at
+NF-RegNet-B1's sites; the generic kernels' at the 288^2 stage-1 sites of
+phase 14, with their NF-RegNet-B1 and phase-2 NFNet-L0 numbers beside),
 the ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.
 """
@@ -215,8 +231,8 @@ TPU_SRC = "multimodal_dataset_distillation_tpu/ops/pallas_gconv.py"
 L2_BYTES = 50e6      # H100 L2; the cold timings rotate through 3x this
 # the eight kernels: LAUNCHES key -> (kind, route, source, TPU kernel line)
 KERNELS = {
-    "gconv3x3_fwd": ("fwd", "simt", "gconv3x3.cu", 176),
-    "gconv3x3_wgrad": ("wgrad", "simt", "gconv3x3.cu", 223),
+    "gconv3x3_fwd": ("fwd", "generic", "gconv3x3.cu", 176),
+    "gconv3x3_wgrad": ("wgrad", "generic", "gconv3x3.cu", 223),
     "gconv3x3_fwd_tc": ("fwd", "tc", "gconv3x3_tc.cu", 176),
     "gconv3x3_wgrad_tc": ("wgrad", "tc", "gconv3x3_tc.cu", 223),
     "gconv3x3_wgrad_tf32": ("wgrad", "tf32", "gconv3x3_tf32.cu", 223),
@@ -226,7 +242,7 @@ KERNELS = {
 }
 # the wrappers' ``tc`` argument that holds each route: the rule's own
 # choice for the 8-channel kernels, the forced choice for the others
-ROUTE_TC = {"simt": False, "tc": True, "tf32": True, "narrow": None}
+ROUTE_TC = {"generic": False, "tc": True, "tf32": True, "narrow": None}
 # launches per outer step of the headline configuration: each grouped site
 # runs 8 forward-kernel and 4 wgrad-kernel calls per inner step, in either
 # orientation of the meta-backward (tests/test_torch_gconv_jvp.py counts
@@ -243,6 +259,8 @@ METRIC_KEYS = ("txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1",
 # NFNet-L0's at 64 channels per group (the tensor-core kernels) and
 # NF-RegNet-B1's at 8 (the 8-channel kernels, in both dtypes)
 TOWER_SITES = {"nfnet": 19, "nf_regnet": 16}
+# NFNet-L0's stride-1 grouped 3x3 sites: image size / site width -> count
+NFNET_STRIDES = {8: 3, 16: 11, 32: 5}
 # NF-RegNet-B1's sites at 224^2: (H, C, groups) -> count
 REGNET_SITES = {(56, 88, 11): 1, (28, 184, 23): 3, (14, 360, 45): 6,
                 (7, 736, 92): 6}
@@ -262,18 +280,26 @@ def env_overrides() -> list:
     return [k for k in ENV_OVERRIDES if k in os.environ]
 
 
-def site_launches(encoder: str, dtype: str, fwd: int, wgrad: int) -> dict:
+def site_launches(encoder: str, dtype: str, fwd: int, wgrad: int,
+                  image_size: int = 224) -> dict:
     """Kernel launches of ``fwd`` forward-kernel and ``wgrad`` wgrad calls
-    at each grouped site of ``encoder`` in ``dtype``, by kernel."""
+    at each grouped site of ``encoder`` in ``dtype`` at ``image_size``, by
+    kernel: NFNet-L0's sites take the route ``ops/gconv.py``'s rule gives
+    their width (the 64-wide kernel of the dtype, or the generic one past
+    its widest width)."""
+    from multimodal_dataset_distillation_tpu_torch.ops import gconv as gc
+
     out = dict.fromkeys(KERNELS, 0)
-    n = TOWER_SITES.get(encoder, 0)
     if encoder == "nf_regnet":
-        keys = ("gconv3x3_fwd_narrow", "gconv3x3_wgrad_narrow")
-    else:
-        route = "tf32" if dtype == "float32" else "tc"
-        keys = (f"gconv3x3_fwd_{route}", f"gconv3x3_wgrad_{route}")
-    out[keys[0]] += n * fwd
-    out[keys[1]] += n * wgrad
+        out["gconv3x3_fwd_narrow"] += TOWER_SITES[encoder] * fwd
+        out["gconv3x3_wgrad_narrow"] += TOWER_SITES[encoder] * wgrad
+    elif encoder in TOWER_SITES:
+        dt = getattr(torch, dtype)
+        for stride, n in NFNET_STRIDES.items():
+            for kind, calls in (("fwd", fwd), ("wgrad", wgrad)):
+                route = gc._route("site", kind, None, dt, gc.TC_WIDTH,
+                                  gc.TC_WIDTH, image_size // stride)
+                out[route_keys(route)[kind == "wgrad"]] += n * calls
     return out
 
 
@@ -371,25 +397,27 @@ def check_kernels(gc):
                   f"({sites} sites per tower pass)", flush=True)
             check_shape(gc, row, x32, w32, yb32, groups)
         # bf16 (the main path's dtype) on both routes; float32 (the dtype
-        # of phases 4-8's eval students) on the CUDA cores and on TF32
+        # of phases 4-8's eval students) on the generic route and on TF32
         (x32, yb32), inputs = inputs[BATCH], None
         time_row(gc, row, x32.bfloat16(), w32.bfloat16(), yb32.bfloat16(),
-                 groups, {"fwd": ("simt", "tc"), "wgrad": ("simt", "tc")},
+                 groups, {"fwd": ("generic", "tc"),
+                          "wgrad": ("generic", "tc")},
                  "", PEAK_BF16)
         time_row(gc, row, x32, w32, yb32, groups,
-                 {"fwd": ("simt", "tf32"), "wgrad": ("simt", "tf32")},
+                 {"fwd": ("generic", "tf32"),
+                  "wgrad": ("generic", "tf32")},
                  "_f32", PEAK_FP32)
         rows.append(row)
     return rows
 
 
-ROUTES = ((torch.float32, "simt"), (torch.float32, "tf32"),
-          (torch.bfloat16, "simt"), (torch.bfloat16, "tc"))
+ROUTES = ((torch.float32, "generic"), (torch.float32, "tf32"),
+          (torch.bfloat16, "generic"), (torch.bfloat16, "tc"))
 
 
 def route_keys(route: str) -> tuple:
     """The LAUNCHES keys of a route's forward and wgrad kernels."""
-    sfx = "" if route == "simt" else f"_{route}"
+    sfx = "" if route == "generic" else f"_{route}"
     return f"gconv3x3_fwd{sfx}", f"gconv3x3_wgrad{sfx}"
 
 
@@ -419,8 +447,7 @@ def check_shape(gc, row, x32, w32, yb32, groups, routes=ROUTES):
         dw = gc.gconv3x3_wgrad(x, yb, groups, tc=tc)
         errs["wgrad"] = check(
             "wgrad", dw, gc.gconv3x3_wgrad_ref(xf, ybf, groups), dtype)
-        if route != "simt" and not torch.equal(
-                dw, gc.gconv3x3_wgrad(x, yb, groups, tc=tc)):
+        if not torch.equal(dw, gc.gconv3x3_wgrad(x, yb, groups, tc=tc)):
             raise AssertionError(f"{route} wgrad differs on repeat")
         ran = {k: gc.LAUNCHES[k] - before[k] for k in gc.LAUNCHES}
         if {k for k, n in ran.items() if n} != set(route_keys(route)):
@@ -428,6 +455,12 @@ def check_shape(gc, row, x32, w32, yb32, groups, routes=ROUTES):
         for kind, e in errs.items():
             key = f"{kind}_err_{tag}"
             row[key] = max(row.get(key, 0.0), e)
+
+
+def tf32_bound(route: str, sfx: str) -> bool:
+    """Whether a route's float32 bound is three TF32 passes: the TF32
+    kernels' and the generic kernels' (``mma.sync`` TF32 x 3)."""
+    return bool(sfx) and route in ("tf32", "generic")
 
 
 def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
@@ -445,8 +478,8 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
     flops = 2.0 * BATCH * h * h * c * 9 * cpg
     nbytes = (x.numel() + w.numel() + yb.numel()) * x.element_size()
     bound = bound_ms(flops, nbytes, peak)
-    for kind in routes:
-        if "tf32" in routes[kind]:
+    if x.dtype == torch.float32:   # the TF32 kernels' own bound
+        for kind in routes:
             row[f"{kind}_bound_tf32{sfx}_ms"], row[
                 f"{kind}_bound_tf32{sfx}_by"] = bound_ms(
                     TF32_PASSES * flops, nbytes, PEAK_TF32)
@@ -463,7 +496,9 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
     for kind, warm, cold in (("fwd", (x, w), fwd_in),
                              ("wgrad", (x, yb), wgrad_in)):
         row[f"{kind}_bound{sfx}_ms"], row[f"{kind}_bound{sfx}_by"] = bound
-        row[f"{kind}_plain{sfx}_ms"] = cuda_ms(plain[kind], warm)
+        # the plain wgrad takes up to ~100 ms a call: fewer calls time it
+        row[f"{kind}_plain{sfx}_ms"] = cuda_ms(plain[kind], warm, iters=3,
+                                               warmup=1)
         row[f"{kind}_library{sfx}_ms"] = cuda_ms(library[kind],
                                                  lib_in[kind][0])
         row[f"{kind}_library{sfx}_cold_ms"] = cuda_ms(library[kind],
@@ -484,9 +519,9 @@ def time_row(gc, row, x, w, yb, groups, routes, sfx, peak):
         f"{k} {v:.4f}" for k, v in row.items()
         if k.endswith("_ms") and ("_f32" in k) == bool(sfx)),
         flush=True)
-    for kind in ("fwd", "wgrad"):
+    for kind in routes:
         for route in routes[kind]:
-            bkey = "_tf32" if route == "tf32" else ""
+            bkey = "_tf32" if tf32_bound(route, sfx) else ""
             share = (row[f"{kind}_bound{bkey}{sfx}_ms"]
                      / row[f"{kind}_{route}{sfx}_cold_ms"])
             print(f"  {kind} {route}{sfx}: bound share (cold) {share:.3f}",
@@ -821,7 +856,7 @@ def eval_launches(cfg, n_pairs: int) -> dict:
     tests = math.ceil(cfg.synthetic_test_size / cfg.batch_size_test)
     return site_launches(cfg.image_encoder, "float32",
                          cfg.num_eval * (2 * steps + tests),
-                         cfg.num_eval * steps)
+                         cfg.num_eval * steps, cfg.image_size)
 
 
 def text_cache(cfg) -> np.ndarray:
@@ -1030,8 +1065,9 @@ def expert_launches(cfg) -> dict:
     n = cfg.num_experts * cfg.train_epochs
     enc = cfg.image_encoder
     return add_launches(
-        site_launches(enc, cfg.train_dtype, n * 2 * steps, n * steps),
-        site_launches(enc, "float32", n * tests, 0))
+        site_launches(enc, cfg.train_dtype, n * 2 * steps, n * steps,
+                      cfg.image_size),
+        site_launches(enc, "float32", n * tests, 0, cfg.image_size))
 
 
 def expert_path(gc, Config, run: str, **kw):
@@ -1473,9 +1509,8 @@ ZOO_TOWERS = {"vit": 224, "nf_resnet50": 224, "nf_regnet": 224,
               "resnet18_gn": 224, "convnet": 32}
 ZOO_DATA = dict(synthetic_size=256, synthetic_test_size=256)
 # (c): eval towers for phase 3's NFNet-distilled 224^2 set (Table D)
-CROSS_EVAL = {"vit": {}, "nf_resnet50": {}, "nf_regnet": {}, "resnet50": {},
-              "convnet": {}, "nfnet_transfer": dict(image_encoder="nfnet",
-                                                    transfer=True)}
+CROSS_EVAL = {"nf_regnet": {}, "resnet50": {}, "convnet": {},
+              "nfnet_transfer": dict(image_encoder="nfnet", transfer=True)}
 
 
 def zoo_distill_cfg(Config, encoder: str, size: int, **kw):
@@ -1629,7 +1664,7 @@ def zoo_batchnorm_path(gc, Config, size: int = 224, **kw):
 
 def check_kernels_regnet(gc):
     """Phase 9 (d): the 8-channel kernels (the route the rule takes) and
-    the generic CUDA-core kernels (``tc=False``) at NF-RegNet-B1's four
+    the generic kernels (``tc=False``) at NF-RegNet-B1's four
     grouped shapes (8 channels per group, odd group counts), forward,
     dgrad and wgrad in float32 and bfloat16 at every mini-batch of
     ``CHECK_BATCHES``: 100 (the distill step and the eval students), 128
@@ -1641,9 +1676,9 @@ def check_kernels_regnet(gc):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(2)
-    routes = tuple((dtype, route) for route in ("narrow", "simt")
+    routes = tuple((dtype, route) for route in ("narrow", "generic")
                    for dtype in (torch.float32, torch.bfloat16))
-    both = {"fwd": ("narrow", "simt"), "wgrad": ("narrow", "simt")}
+    both = {"fwd": ("narrow", "generic"), "wgrad": ("narrow", "generic")}
     rows = []
     for (h, c, groups), sites in REGNET_SITES.items():
         cpg = c // groups
@@ -1712,7 +1747,7 @@ def zoo_path(gc, Config, syn, phase3_steps_per_s: float):
 CLIP_ZOO = {"clip": dict(text_encoder="clip"),
             "convnext": dict(text_encoder="bert")}
 S2D_PAIRS = 1        # (c): alternating pairs of timed runs
-S2D_STEPS = 2        # (c): outer steps per timed run
+S2D_STEPS = 1        # (c): outer steps per timed run
 
 
 def clip_zoo_path(gc, Config, encoder: str, size: int = 224, **kw):
@@ -1979,7 +2014,7 @@ FR_MODES = {"rof_fused": dict(fr_bwd="rof", fused_jvp=True),
             "rof_plain": dict(fr_bwd="rof", fused_jvp=False),
             "for": dict(fr_bwd="for")}
 FR_ROUNDS = 1        # (b): rounds over the modes
-FR_STEPS = 2         # (b): timed outer steps per mode and round
+FR_STEPS = 1         # (b): timed outer steps per mode and round
 FR_F64_TOL = 1e-9    # (a): relative error norms in float64
 # cuDNN kernels of the stems' second-order convs (PERF.md section 5)
 DOUBLE_BACKWARD_KERNELS = ("precomputed_convolve_sgemm",
@@ -2434,7 +2469,7 @@ DP_RANK_ARG = "--phase13-rank"
 DP_TIMEOUT = 600     # seconds for the ranks' whole run
 DP_F32 = dict(syn_steps=2, mini_batch_size=25, inner_dtype="float32",
               shard_syn=True)   # (a): phase 4's step; 25 pads to 26
-DP_STEPS = 2         # (b): timed headline steps after a warm-up
+DP_STEPS = 1         # (b): timed headline steps after a warm-up
 
 
 def dp_plan() -> dict:
@@ -2751,9 +2786,82 @@ def phase13(gc, Config, buffers_dir: str, small_dir: str,
     return out, launches
 
 
+# phase 14: NFNet-L0 at timm nfnet_l0's test resolution (288^2), float32:
+# the stage-1 sites are 36 wide, past the TF32 wgrad's 32
+SIZE_288 = 288
+RUN_288 = dict(_SMALL, image_size=SIZE_288, device_augment=False,
+               buffer_path="buffers_288", name="phase14")
+SYN_288 = 100        # the eval CLI's distilled pairs, drawn from the seed
+
+
+def check_kernels_288(gc):
+    """Phase 14, first: the generic kernels (``tc=False``) at the 288^2
+    stage-1 shape (36^2 x 128, 2 groups of 64) in both dtypes at the eval
+    students' and the expert trainer's mini-batches against the plain
+    versions at phase 2's tolerances, the wgrad twice for the same bits;
+    then a stage-1 pass at mini-batch 100 in float32 timed: the generic
+    forward and wgrad, the TF32 forward (the path's forward there), the
+    plain version and cuDNN (TF32 off and on), beside the bound."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    h, c, groups = SIZE_288 // 8, 128, 2
+    cpg = c // groups
+    w32 = torch.randn(3, 3, cpg, c, device="cuda",
+                      generator=gen) / math.sqrt(9 * cpg)
+    row = {"shape": [BATCH, h, h, c], "groups": groups,
+           "sites": NFNET_STRIDES[8]}
+    routes = ((torch.float32, "generic"), (torch.bfloat16, "generic"))
+    for batch in (BATCH, 128):
+        x32, yb32 = (torch.randn(batch, h, h, c, device="cuda", generator=gen)
+                     for _ in range(2))
+        print(f"288^2 stage-1 shape x=({batch},{h},{h},{c}) groups={groups}",
+              flush=True)
+        check_shape(gc, row, x32, w32, yb32, groups, routes)
+        if batch == BATCH:
+            time_row(gc, row, x32, w32, yb32, groups,
+                     {"fwd": ("generic", "tf32"), "wgrad": ("generic",)},
+                     "_f32", PEAK_FP32)
+        del x32, yb32
+    return [row]
+
+
+def phase14(gc, Config, work: str) -> tuple:
+    """Phase 14: the 288^2 path.  :func:`check_kernels_288`, then the
+    buffer CLI (``RUN_288``) in ``work`` and the eval CLI on a seeded set,
+    each with its launches held exactly to :func:`expert_launches` /
+    :func:`eval_launches` (the rule's route per site width), and both with
+    the stage-1 wgrads on the generic kernel and no generic forward.  ->
+    (the kernel rows, the phase's summary, its launches per run)."""
+    rows = check_kernels_288(gc)
+    torch.cuda.empty_cache()
+    with contextlib.chdir(work):
+        buf = expert_path(gc, Config, "288", **RUN_288)
+    torch.cuda.empty_cache()
+    rs = np.random.RandomState(SIZE_288)
+    syn = (rs.randn(SYN_288, SIZE_288, SIZE_288, 3).astype(np.float32),
+           rs.randn(SYN_288, 768).astype(np.float32), 0.01, 0.01)
+    ev = eval_path(gc, Config, syn, image_size=SIZE_288, num_eval=2,
+                   synthetic_test_size=256)
+    launches = {"buffer_cli": buf["launches"], "eval_cli": ev["launches"]}
+    for run, n in launches.items():
+        if not n["gconv3x3_wgrad"] or n["gconv3x3_fwd"]:
+            raise AssertionError(f"phase 14 {run}: launches {n}")
+    out = {"image_size": SIZE_288, "buffer_cli": buf, "eval_cli": ev,
+           "kernels_288": rows[0]}
+    print(f"phase 14 (288^2, float32): buffer CLI epoch "
+          f"{buf['epoch_s'][0]['train_s']:.2f} s "
+          f"({buf['epoch_s'][0]['images_per_s']:.1f} images/s), peak "
+          f"{buf['max_memory_allocated_gib']:.2f} GiB; eval CLI wall "
+          f"{ev['wall_s']:.1f} s, peak {ev['max_memory_allocated_gib']:.2f}"
+          f" GiB; launches {json.dumps(launches)}", flush=True)
+    return rows, out, launches
+
+
 def kernel_entries(rows, launches, launches_eval, launches_expert,
                    launches_cli, regnet_rows, launches_zoo, launches_p10,
-                   launches_p11, launches_p12, launches_p13):
+                   launches_p11, launches_p12, launches_p13, rows_288,
+                   launches_p14):
     """One entry per kernel, summed over one tower pass (mb=100), in the
     dtype of the paths that launch it.  The tensor-core kernels at NFNet-L0's
     19 sites: bf16 for the bf16 ones, float32 for the TF32 ones (phases 4-8;
@@ -2761,13 +2869,17 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
     bound beside as ``bound_fp32_ms``).  The 8-channel kernels at
     NF-RegNet-B1's 16 sites, their path since phase 9, float32 (the buffer
     and eval students) with bfloat16 (the distill step) beside as
-    ``*_bf16``.  The generic CUDA-core kernels at the same sites with
-    ``tc=False`` (on no path since the 8-channel kernels), laid out the
-    same, and their phase-2 numbers at NFNet-L0's shapes under
-    ``nfnet_shapes``.  ``launches``: of the bf16 tensor-core kernels phase
-    3's (the bf16 main path), of the TF32 ones phase 4's (the float32 outer
-    step), of the 8-channel and the CUDA-core ones phase 9 (a)'s
-    NF-RegNet-B1 distill CLI run; ``launches_eval``: phase 5's (the eval
+    ``*_bf16``.  The generic kernels at NFNet-L0's three stage-1 sites at
+    288^2 in float32 (phase 14, their path since this slice; the forward
+    with ``tc=False``, the path's forwards being the TF32 kernel's; bound
+    TF32 x 3 as the TF32 kernels'), with their NF-RegNet-B1 numbers
+    (``tc=False``, laid out as the 8-channel kernels') under
+    ``nf_regnet_shapes`` and their phase-2 numbers at NFNet-L0's 224^2
+    shapes under ``nfnet_shapes``.  ``launches``: of the bf16 tensor-core
+    kernels phase 3's (the bf16 main path), of the TF32 ones phase 4's
+    (the float32 outer step), of the 8-channel ones phase 9 (a)'s
+    NF-RegNet-B1 distill CLI run, of the generic ones phase 14's (buffer
+    CLI and eval CLI at 288^2); ``launches_eval``: phase 5's (the eval
     path); ``launches_expert``:
     phase 7's per run of the buffer CLI; ``launches_cli``: phase 8's (the
     distill CLI, all routes); ``launches_zoo``: phase 9's per run;
@@ -2775,7 +2887,8 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
     ``launches_phase11``: phase 11's per run (the float32 steps of the
     modes other than phase 4's, and each mode's timed headline run);
     ``launches_phase13``: phase 13's per run on rank 0 (and rank 1's buffer
-    CLI run, which skips the test passes).  Each
+    CLI run, which skips the test passes); ``launches_phase14``: phase
+    14's per run.  Each
     entry, and its ``nfnet_shapes``, names the tower whose shapes its
     numbers were taken at (``tower``)."""
     def measures(name, kind, route, sfx, rs):
@@ -2787,7 +2900,7 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
                        for k in ((kind, "dgrad") if kind == "fwd"
                                  else (kind,)))
 
-        bkey = f"{kind}_bound{'_tf32' if route == 'tf32' else ''}{sfx}"
+        bkey = f"{kind}_bound{'_tf32' if tf32_bound(route, sfx) else ''}{sfx}"
         bound, cold = (total(f"{bkey}_ms"),
                        total(f"{kind}_{route}{sfx}_cold_ms"))
         entry = {
@@ -2808,9 +2921,10 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
         if sfx:   # cuDNN float32 with TF32
             entry["library_tf32_ms"] = total(f"{kind}_library{sfx}_tf32_ms")
             keys.append(f"{kind}_library{sfx}_tf32_ms")
-        if route == "tf32":
+        if tf32_bound(route, sfx):
             entry["bound_fp32_ms"] = total(f"{kind}_bound{sfx}_ms")
-        if route in ("simt", "narrow"):   # this route's bf16 times
+        if (route in ("generic", "narrow")   # this route's bf16 times
+                and f"{kind}_{route}_ms" in rs[0]):
             entry.update({
                 "max_abs_err_bf16": err(f"{route}_bf16"),
                 "ms_bf16": total(f"{kind}_{route}_ms"),
@@ -2827,14 +2941,20 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
         entry = {"name": name, "route": "cuda",
                  "source": f"{PKG}/csrc/{src}",
                  "replaces": f"{TPU_SRC}:{line}"}
-        if route in ("simt", "narrow"):
+        if route == "narrow":
             entry["tower"] = "nf_regnet_b1"
             entry.update(measures(name, kind, route, sfx, regnet_rows))
-            if route == "simt":
-                entry["nfnet_shapes"] = {
-                    "tower": "nfnet_l0",
-                    **measures(name, kind, route, sfx, rows)}
             entry["launches"] = launches_zoo["distill_nf_regnet"][name]
+        elif route == "generic":
+            entry["tower"] = "nfnet_l0_288"
+            entry.update(measures(name, kind, route, sfx, rows_288))
+            entry["nf_regnet_shapes"] = {
+                "tower": "nf_regnet_b1",
+                **measures(name, kind, route, sfx, regnet_rows)}
+            entry["nfnet_shapes"] = {
+                "tower": "nfnet_l0",
+                **measures(name, kind, route, sfx, rows)}
+            entry["launches"] = sum(n[name] for n in launches_p14.values())
         else:
             entry["tower"] = "nfnet_l0"
             entry.update(measures(name, kind, route, sfx, rows))
@@ -2853,7 +2973,9 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
             "launches_phase12": {run: n[name]
                                  for run, n in launches_p12.items()},
             "launches_phase13": {run: n.get(name, 0)
-                                 for run, n in launches_p13.items()}})
+                                 for run, n in launches_p13.items()},
+            "launches_phase14": {run: n[name]
+                                 for run, n in launches_p14.items()}})
         entries.append(entry)
     return entries
 
@@ -2901,6 +3023,14 @@ def main() -> int:
             if libs.tf32.mdd_gconv3x3_tf32_smem(i, h) != mirror(h):
                 raise AssertionError(f"{mirror.__name__}({h}) differs from "
                                      f"gconv3x3_tf32.cu")
+    for i, kind in enumerate(("fwd", "wgrad")):
+        for code, dtype in enumerate((torch.float32, torch.bfloat16)):
+            for cpg, opg in ((64, 64), (8, 8), (3, 130)):
+                if (libs.generic.mdd_gconv3x3_generic_smem(i, code, cpg, opg)
+                        != gc.generic_smem_bytes(kind, dtype, cpg, opg)):
+                    raise AssertionError(
+                        f"generic_smem_bytes({kind!r}, {dtype}, {cpg}, "
+                        f"{opg}) differs from gconv3x3.cu")
 
     t_lap = [time.perf_counter()]
 
@@ -2951,8 +3081,12 @@ def main() -> int:
     _, launches_p13 = phase13(gc, Config, os.path.join(tmp, "a"),
                               os.path.join(tmp, "small"),
                               path["steps_per_s"])
-    tmp_dirs.cleanup()
     lap("13")
+    # phase 7's small runs left the 256-pair caption caches there
+    rows_288, _, launches_p14 = phase14(gc, Config,
+                                        os.path.join(tmp, "small"))
+    tmp_dirs.cleanup()
+    lap("14")
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
@@ -2968,7 +3102,7 @@ def main() -> int:
         rows, launches, ev["launches"],
         {run: e["launches"] for run, e in experts.items()},
         cli["launches"], regnet_rows, launches_zoo, launches_p10,
-        launches_p11, launches_p12, launches_p13)}),
+        launches_p11, launches_p12, launches_p13, rows_288, launches_p14)}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,8 +18,11 @@ four CUDA routes here, each built with ``nvcc`` for ``sm_90a`` into
   spans up to 8 groups and a run of pixel tiles; bf16 on ``mma.sync``
   tensor cores, the float32 forward on ``mma.sync`` TF32 in three passes,
   the float32 wgrad on CUDA-core FMAs from shared memory;
-* ``csrc/gconv3x3.cu``: CUDA-core float32-FMA kernels for everything else
-  (other group widths, images too wide for the other kernels' tiles).
+* ``csrc/gconv3x3.cu``: the generic route, everything else (other group
+  widths, images too wide for the other kernels' flattened halos, and
+  ``tc=False``): ``mma.sync`` tensor cores (bf16, or TF32 in three passes
+  for float32) on 2-D spatial tiles whose shared memory does not depend on
+  the image width (:func:`generic_tile`, :func:`generic_smem_bytes`).
 
 :func:`use_tc`, :func:`use_tf32` and :func:`use_narrow` are the rule
 between them, by dtype and shape alone.  Whether a tower's grouped convs
@@ -62,15 +65,20 @@ from ..utils.env import env_bool
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = {"simt": (_CSRC / "gconv3x3.cu", _BUILD_DIR / "libgconv.so"),
+_SOURCES = {"generic": (_CSRC / "gconv3x3.cu",
+                        _BUILD_DIR / "libgconv.so"),
             "tc": (_CSRC / "gconv3x3_tc.cu", _BUILD_DIR / "libgconv_tc.so"),
             "tf32": (_CSRC / "gconv3x3_tf32.cu",
                      _BUILD_DIR / "libgconv_tf32.so"),
             "narrow": (_CSRC / "gconv3x3_narrow.cu",
                        _BUILD_DIR / "libgconv_narrow.so")}
 
+# the device helpers gconv3x3.cu and gconv3x3_narrow.cu include: a change
+# to it rebuilds every source
+_HEADER = _CSRC / "gconv_mma.cuh"
+
 #: kernel launches per wrapper route, counted where the wrapper launches:
-#: ``gconv3x3_fwd``/``gconv3x3_wgrad`` are the CUDA-core kernels,
+#: ``gconv3x3_fwd``/``gconv3x3_wgrad`` are the generic route's kernels,
 #: ``*_tc`` the bfloat16 tensor-core ones, ``*_tf32`` the float32
 #: tensor-core ones (the forward's weight pre-pass and main kernel are one
 #: launch of its entry point), ``*_narrow`` the 8-channels-per-group ones
@@ -81,9 +89,12 @@ LAUNCHES = {"gconv3x3_fwd": 0, "gconv3x3_wgrad": 0,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132            # H100 SXM streaming multiprocessors
-_WGRAD_ROWS = 128     # kTileM of gconv3x3.cu
-_WGRAD_COLS = 64      # kTileN
-_WGRAD_SLICE = 16     # kTileK
+# gconv3x3.cu (the generic route)
+GENERIC_PIX = 128     # kTilePix: output pixels of a tile, at most
+GENERIC_HALO = 192    # kHaloMax: halo pixels of a tile, at most
+GENERIC_COLS = 64     # kNT: output channels per block
+_GENERIC_STAGE = 64   # kStageBytes: channels staged per step, in bytes
+_GENERIC_BLOCKS_PER_SM = 2   # __launch_bounds__ of both kernels
 # gconv3x3_tc.cu
 TC_WIDTH = 64         # channels per group, in and out
 TC_TILE = 128         # pixels per tile
@@ -105,7 +116,7 @@ _NARROW_BLOCKS_PER_SM = {("fwd", 2): 3, ("fwd", 4): 2, ("wgrad", 2): 2,
 
 
 class _Libs(NamedTuple):
-    simt: ctypes.CDLL
+    generic: ctypes.CDLL
     tc: ctypes.CDLL
     tf32: ctypes.CDLL
     narrow: ctypes.CDLL
@@ -163,8 +174,8 @@ def build(verbose: bool = False) -> _Libs:
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name, (src, lib) in _SOURCES.items():
-        stale = (not lib.exists()
-                 or lib.stat().st_mtime < src.stat().st_mtime)
+        newest = max(src.stat().st_mtime, _HEADER.stat().st_mtime)
+        stale = not lib.exists() or lib.stat().st_mtime < newest
         if verbose or stale:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
             os.close(fd)
@@ -183,11 +194,12 @@ def build(verbose: bool = False) -> _Libs:
         os.replace(tmp, _SOURCES[name][1])  # atomic: old or new, never half
     if failed:
         raise RuntimeError("\n".join(failed))
-    simt, tc, tf32, narrow = (ctypes.CDLL(str(_SOURCES[name][1]))
-                              for name in _Libs._fields)
+    generic, tc, tf32, narrow = (ctypes.CDLL(str(_SOURCES[name][1]))
+                                 for name in _Libs._fields)
     p, i = ctypes.c_void_p, ctypes.c_int
-    simt.mdd_gconv3x3_fwd.argtypes = [p, p, p] + [i] * 7 + [p]
-    simt.mdd_gconv3x3_wgrad.argtypes = [p, p, p, p] + [i] * 9 + [p]
+    generic.mdd_gconv3x3_fwd.argtypes = [p, p, p] + [i] * 11 + [p]
+    generic.mdd_gconv3x3_wgrad.argtypes = [p, p, p, p] + [i] * 11 + [p]
+    generic.mdd_gconv3x3_generic_smem.argtypes = [i] * 4
     tc.mdd_gconv3x3_fwd_tc.argtypes = [p, p, p] + [i] * 5 + [p]
     tc.mdd_gconv3x3_wgrad_tc.argtypes = [p, p, p, p] + [i] * 6 + [p]
     tc.mdd_gconv3x3_tc_smem.argtypes = [i, i]
@@ -197,7 +209,8 @@ def build(verbose: bool = False) -> _Libs:
     narrow.mdd_gconv3x3_fwd_narrow.argtypes = [p, p, p] + [i] * 6 + [p]
     narrow.mdd_gconv3x3_wgrad_narrow.argtypes = [p, p, p, p] + [i] * 6 + [p]
     narrow.mdd_gconv3x3_narrow_smem.argtypes = [i, i, i]
-    for fn in (simt.mdd_gconv3x3_fwd, simt.mdd_gconv3x3_wgrad,
+    for fn in (generic.mdd_gconv3x3_fwd, generic.mdd_gconv3x3_wgrad,
+               generic.mdd_gconv3x3_generic_smem,
                tc.mdd_gconv3x3_fwd_tc, tc.mdd_gconv3x3_wgrad_tc,
                tc.mdd_gconv3x3_tc_smem, tf32.mdd_gconv3x3_fwd_tf32,
                tf32.mdd_gconv3x3_wgrad_tf32, tf32.mdd_gconv3x3_tf32_smem,
@@ -205,7 +218,7 @@ def build(verbose: bool = False) -> _Libs:
                narrow.mdd_gconv3x3_wgrad_narrow,
                narrow.mdd_gconv3x3_narrow_smem):
         fn.restype = i
-    _libs = _Libs(simt, tc, tf32, narrow)
+    _libs = _Libs(generic, tc, tf32, narrow)
     return _libs
 
 
@@ -246,10 +259,13 @@ def tf32_fwd_smem_bytes(width: int) -> int:
 def use_tc(kind: str, dtype: torch.dtype, cpg: int, opg: int,
            width: int) -> bool:
     """The dispatch rule: bfloat16 with 64 input and 64 output channels per
-    group goes to the tensor-core kernel (``kind`` "fwd" or "wgrad"),
-    unless the image is so wide that its halo tiles exceed a block's shared
-    memory; everything else to the CUDA-core kernel.  A choice by dtype and
-    shape: the wrappers catch no failure of any route."""
+    group goes to the ``wgmma`` kernel of gconv3x3_tc.cu (``kind`` "fwd" or
+    "wgrad"), unless the image is so wide that its flattened halo (128 + 2
+    W + 2 pixel rows) exceeds a block's shared memory (past 242 pixels in
+    the forward, 321 in the wgrad); everything else goes on down the rule
+    (:func:`_route`).  Its bound is the operations, bf16 at 989 TFLOP/s.
+    A choice by dtype and shape: the wrappers catch no failure of any
+    route."""
     return (dtype == torch.bfloat16 and cpg == TC_WIDTH and opg == TC_WIDTH
             and tc_smem_bytes(kind, width) <= _SMEM_BLOCK_MAX)
 
@@ -257,12 +273,134 @@ def use_tc(kind: str, dtype: torch.dtype, cpg: int, opg: int,
 def use_tf32(kind: str, dtype: torch.dtype, cpg: int, opg: int,
              width: int) -> bool:
     """The float32 side of the rule: float32 with 64 input and 64 output
-    channels per group goes to the three-pass TF32 kernel of ``kind``
-    ("fwd", also the dgrad, or "wgrad"), unless the image is so wide that
-    its halo tiles exceed a block's shared memory."""
+    channels per group goes to the ``wgmma`` three-pass TF32 kernel of
+    ``kind`` ("fwd", also the dgrad, or "wgrad") in gconv3x3_tf32.cu,
+    unless the image is so wide that its flattened halo exceeds a block's
+    shared memory (past 64 pixels in the forward, 32 in the wgrad: NFNet-L0
+    at 288^2 has 36-wide stage-1 sites, whose wgrad then takes the generic
+    route).  Its bound is the operations, TF32 x 3 at 495 / 3 = 165
+    TFLOP/s effective."""
     smem = {"fwd": tf32_fwd_smem_bytes, "wgrad": tf32_smem_bytes}[kind]
     return (dtype == torch.float32 and cpg == TC_WIDTH and opg == TC_WIDTH
             and smem(width) <= _SMEM_BLOCK_MAX)
+
+
+def generic_smem_bytes(kind: str, dtype: torch.dtype, cpg: int,
+                       opg: int) -> int:
+    """Dynamic shared memory of the generic kernel of ``kind`` ("fwd" or
+    "wgrad") in ``dtype`` at group widths ``cpg`` -> ``opg``:
+    ``smem_bytes`` of gconv3x3.cu.  Two stages of a halo of at most 192
+    pixels x 64 bytes of channels (rows of 80 bytes; the float32 wgrad's
+    96) and either the weight of 9 taps x those channels (forward) or the
+    ybar tile of 128 pixels (wgrad), in rows of 64 output channels (+32
+    bytes in float32, +16 in bf16); then an 8-byte table entry per halo
+    pixel, and in the wgrad 8 + 4 bytes per tile pixel (its table entry
+    and its halo pixel).  The widths are staged in 64-byte steps and
+    64-wide column blocks, so the size depends on neither them nor the
+    image width."""
+    if kind not in ("fwd", "wgrad"):
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    del cpg, opg   # staged in fixed steps
+    size = torch.empty((), dtype=dtype).element_size()
+    n_row = GENERIC_COLS * size + (32 if size == 4 else 16)
+    tables = GENERIC_HALO * 8
+    if kind == "fwd":
+        kc = _GENERIC_STAGE // size
+        return (2 * (GENERIC_HALO * (_GENERIC_STAGE + 16) + 9 * kc * n_row)
+                + tables)
+    halo_row = _GENERIC_STAGE + (32 if size == 4 else 16)
+    return (2 * (GENERIC_HALO * halo_row + GENERIC_PIX * n_row) + tables
+            + GENERIC_PIX * 12)
+
+
+def generic_tile_fits(tn: int, th: int, tw: int) -> bool:
+    """A tile of tn images x th x tw pixels the generic kernels take: at
+    most 128 output pixels and 200 halo pixels, each image its own halo of
+    (th + 2) x (tw + 2) (``tile_ok`` of gconv3x3.cu)."""
+    return (min(tn, th, tw) >= 1 and tn * th * tw <= GENERIC_PIX
+            and tn * (th + 2) * (tw + 2) <= GENERIC_HALO)
+
+
+@functools.lru_cache(maxsize=None)
+def generic_tile(n: int, h: int, w: int) -> tuple:
+    """(tn, th, tw) of the generic kernels' tiles for n images of h x w:
+    the fitting tile that costs least, counted as tiles x (its pixels
+    rounded up to 16, two float32 k-steps of the wgrad, + 64 for the
+    per-tile staging).  Several images only when whole images fit (tn > 1
+    needs th = h and tw = w).  3 x 36 at 36^2, 4 x 28 at 28^2, 8 x 14 at 14^2, two
+    7 x 7 images at 7^2."""
+    best = None
+    for tw in range(1, min(w, 64) + 1):
+        for th in range(1, min(h, GENERIC_PIX // tw) + 1):
+            whole = th == h and tw == w
+            for tn in range(1, (min(n, GENERIC_PIX // (th * tw)) if whole
+                                else 1) + 1):
+                if not generic_tile_fits(tn, th, tw):
+                    break
+                tiles = generic_tiles(n, h, w, (tn, th, tw))
+                px = tn * th * tw
+                key = (tiles * (math.ceil(px / 16) * 16 + 64), -px, -tw)
+                if best is None or key < best[0]:
+                    best = (key, (tn, th, tw))
+    return best[1]
+
+
+def generic_tiles(n: int, h: int, w: int, tile: tuple) -> int:
+    """Tiles of ``tile`` = (tn, th, tw) over n images of h x w: what the
+    forward's blocks walk and the wgrad's splits share."""
+    tn, th, tw = tile
+    return math.ceil(n / tn) * math.ceil(h / th) * math.ceil(w / tw)
+
+
+def generic_tile_origin(t: int, h: int, w: int, tile: tuple) -> tuple:
+    """(first image, first row, first column) of tile t: ``tile_of`` of
+    gconv3x3.cu (tiles row-major within an image, images in order)."""
+    tn, th, tw = tile
+    tiles_w, tiles_h = math.ceil(w / tw), math.ceil(h / th)
+    t, tx = divmod(t, tiles_w)
+    n, ty = divmod(t, tiles_h)
+    return n * tn, ty * th, tx * tw
+
+
+def generic_cols(opg: int) -> int:
+    """Output channels of a generic block: 64, or 8 where opg <= 8
+    (``block_cols`` of gconv3x3.cu); the grids' column blocks are
+    ceil(opg / generic_cols(opg))."""
+    return 8 if opg <= 8 else GENERIC_COLS
+
+
+def _generic_per_sm(kind: str, dtype: torch.dtype, cpg: int,
+                    opg: int) -> int:
+    smem = generic_smem_bytes(kind, dtype, cpg, opg)
+    return max(1, min(_GENERIC_BLOCKS_PER_SM,
+                      _SMEM_SM // (smem + _SMEM_RESERVED)))
+
+
+def generic_fwd_blocks(tiles: int, groups: int, cpg: int, opg: int,
+                       dtype: torch.dtype, sms: int = _SMS) -> int:
+    """Persistent blocks per group and column block of the generic forward,
+    its grid.x: as many blocks as fit on the card at once, evened out so
+    that each walks the same number of tiles or one fewer (block b takes
+    tiles b, b + blocks, ...)."""
+    cols = math.ceil(opg / generic_cols(opg))
+    cap = max(1, sms * _generic_per_sm("fwd", dtype, cpg, opg)
+              // (groups * cols))
+    rounds = math.ceil(tiles / cap)
+    return max(1, math.ceil(tiles / rounds))
+
+
+def generic_wgrad_splits(tiles: int, groups: int, cpg: int, opg: int,
+                         dtype: torch.dtype, sms: int = _SMS) -> int:
+    """Splits of the generic wgrad, its grid.x: about as many blocks
+    (splits x channel stages x column blocks x groups) as fit on the card
+    at once, no more splits than tiles.  Split s sums tiles [s * tiles //
+    splits, (s + 1) * tiles // splits); splits differ by at most one tile,
+    and each writes one float32 partial that the reduce adds in order."""
+    size = torch.empty((), dtype=dtype).element_size()
+    stages = math.ceil(cpg * size / _GENERIC_STAGE)
+    per_split = stages * math.ceil(opg / generic_cols(opg)) * groups
+    per_sm = _generic_per_sm("wgrad", dtype, cpg, opg)
+    return max(1, min(tiles, per_sm * sms // per_split))
 
 
 def narrow_tile(kind: str, itemsize: int) -> int:
@@ -290,10 +428,11 @@ def narrow_smem_bytes(kind: str, itemsize: int, width: int) -> int:
 
 def use_narrow(dtype: torch.dtype, cpg: int, opg: int, width: int) -> bool:
     """The rule of the 8-channel kernels (forward, also the dgrad, and
-    wgrad): float32 or bfloat16 with 8 input and 8 output channels per
-    group, unless the image is so wide that a block's ring of pixel rows
-    exceeds its shared memory in either kernel (wider than 295 pixels in
-    float32, 547 in bfloat16)."""
+    wgrad) of gconv3x3_narrow.cu: float32 or bfloat16 with 8 input and 8
+    output channels per group, unless the image is so wide that a block's
+    ring of pixel rows exceeds its shared memory in either kernel (wider
+    than 295 pixels in float32, 547 in bfloat16).  Bound by the bytes (36
+    FLOP per bf16 byte), so a block spans 8 groups of a pixel run."""
     return (dtype in _DTYPE_CODE and cpg == NARROW_WIDTH
             and opg == NARROW_WIDTH
             and all(narrow_smem_bytes(kind, dtype.itemsize, width)
@@ -400,14 +539,27 @@ def tf32_split(t: torch.Tensor):
 
 def gconv3x3_fwd_tf32_ref(x: torch.Tensor, w: torch.Tensor,
                           groups: int) -> torch.Tensor:
-    """The arithmetic of gconv3x3_tf32.cu's forward, for the CPU tests: the
-    plain conv of the TF32 parts of x and w in float32, hi*hi + (hi*lo +
-    lo*hi), the kernel's two accumulators.  Nothing on the card calls it:
-    :func:`gconv3x3_ref` is the kernel's yardstick there."""
+    """The arithmetic of the float32 forwards on the tensor cores
+    (gconv3x3_tf32.cu at 64/64, gconv3x3.cu's generic one at any group
+    width), for the CPU tests: the plain conv of the TF32 parts of x and w
+    in float32, hi*hi + (hi*lo + lo*hi), the kernels' two accumulators.
+    Nothing on the card calls it: :func:`gconv3x3_ref` is the kernels'
+    yardstick there."""
     xh, xl = tf32_split(x)
     wh, wl = tf32_split(w)
     return gconv3x3_ref(xh, wh, groups) + (gconv3x3_ref(xh, wl, groups)
                                            + gconv3x3_ref(xl, wh, groups))
+
+
+def gconv3x3_wgrad_tf32_ref(x: torch.Tensor, ybar: torch.Tensor,
+                            groups: int) -> torch.Tensor:
+    """The same for the float32 wgrads on the tensor cores: the plain wgrad
+    of the TF32 parts of x and ybar, hi*hi + (hi*lo + lo*hi)."""
+    xh, xl = tf32_split(x)
+    yh, yl = tf32_split(ybar)
+    return gconv3x3_wgrad_ref(xh, yh, groups) + (
+        gconv3x3_wgrad_ref(xh, yl, groups)
+        + gconv3x3_wgrad_ref(xl, yh, groups))
 
 
 def tf32_fwd_weight(w: torch.Tensor, groups: int):
@@ -460,10 +612,20 @@ def _cuda_check(name: str, *ts: torch.Tensor) -> int:
 
 def _route(name: str, kind: str, tc: Optional[bool], dtype: torch.dtype,
            cpg: int, opg: int, width: int, *ts: torch.Tensor) -> str:
-    """-> "tc", "tf32", "narrow" or "simt".  ``tc`` None applies
-    :func:`use_tc`, :func:`use_tf32` and :func:`use_narrow`; True demands
-    the 64-wide tensor-core kernel of the dtype (and raises where none
-    applies), False the generic CUDA-core one."""
+    """-> "tc", "tf32", "narrow" or "generic", in that order.  ``tc`` None
+    applies :func:`use_tc`, :func:`use_tf32` and :func:`use_narrow`, and
+    sends what none of them takes to the generic kernels of gconv3x3.cu;
+    True demands the 64-wide ``wgmma`` kernel of the dtype (and raises
+    where none applies), False the generic one.
+
+    The generic route takes every shape: any group widths, any image width
+    (2-D tiles, :func:`generic_tile`), operands of any alignment (16-byte
+    copies where channel rows and pointers allow, plain loads otherwise).
+    It runs ``mma.sync`` on the tensor cores, bf16 or TF32 in three passes
+    (float32-accurate), so its bound is the same operations bound as the
+    64-wide kernels' at 64/64 (989 TFLOP/s bf16, 165 effective float32)
+    and the bytes at narrow groups.  The other routes need 16-byte aligned
+    operands."""
     fits = ("tc" if use_tc(kind, dtype, cpg, opg, width) else
             "tf32" if use_tf32(kind, dtype, cpg, opg, width) else None)
     if tc and fits is None:
@@ -473,10 +635,10 @@ def _route(name: str, kind: str, tc: Optional[bool], dtype: torch.dtype,
                          f"got {dtype}, {cpg}->{opg}, width {width}")
     if tc is None:
         route = fits or ("narrow" if use_narrow(dtype, cpg, opg, width)
-                         else "simt")
+                         else "generic")
     else:
-        route = fits if tc else "simt"
-    if route != "simt" and any(t.data_ptr() % 16 for t in ts):
+        route = fits if tc else "generic"
+    if route != "generic" and any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: the tensor-core kernel needs 16-byte "
                          f"aligned operands")
     return route
@@ -534,21 +696,14 @@ def gconv3x3_fwd(x: torch.Tensor, w: torch.Tensor, groups: int,
                           x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd,
                           groups, runs, code, stream))
         else:
-            _launched("gconv3x3_fwd", libs.simt.mdd_gconv3x3_fwd(
+            tile = generic_tile(n, h, wd)
+            blocks = generic_fwd_blocks(generic_tiles(n, h, wd, tile),
+                                        groups, cpg, opg, x.dtype,
+                                        _sm_count(x.device))
+            _launched("gconv3x3_fwd", libs.generic.mdd_gconv3x3_fwd(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, groups,
-                cpg, opg, code, stream))
+                cpg, opg, *tile, blocks, code, stream))
     return y
-
-
-def wgrad_splits(m: int, groups: int, cpg: int, opg: int) -> tuple:
-    """(splits, pixels per split) for the CUDA-core wgrad's first pass:
-    enough blocks for about four per SM, each summing at least 256
-    pixels."""
-    tiles = (math.ceil(9 * cpg / _WGRAD_ROWS) * math.ceil(opg / _WGRAD_COLS)
-             * groups)
-    splits = max(1, min(math.ceil(4 * _SMS / tiles), math.ceil(m / 256)))
-    chunk = math.ceil(math.ceil(m / splits) / _WGRAD_SLICE) * _WGRAD_SLICE
-    return math.ceil(m / chunk), chunk
 
 
 def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor, groups: int,
@@ -573,8 +728,11 @@ def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor, groups: int,
     dw = torch.empty((3, 3, cpg, feats), dtype=x.dtype, device=x.device)
     route = _route("gconv3x3_wgrad", "wgrad", tc, x.dtype, cpg, opg, wd, x,
                    ybar, dw)
-    if route == "simt":
-        splits, per = wgrad_splits(m, groups, cpg, opg)
+    if route == "generic":
+        tile = generic_tile(n, h, wd)
+        splits = generic_wgrad_splits(generic_tiles(n, h, wd, tile),
+                                      groups, cpg, opg, x.dtype,
+                                      _sm_count(x.device))
     elif route == "narrow":
         splits = narrow_runs("wgrad", m, groups, x.element_size(), wd,
                              _sm_count(x.device))
@@ -602,9 +760,9 @@ def gconv3x3_wgrad(x: torch.Tensor, ybar: torch.Tensor, groups: int,
                           dw.data_ptr(), n, h, wd, groups, splits, code,
                           stream))
         else:
-            _launched("gconv3x3_wgrad", libs.simt.mdd_gconv3x3_wgrad(
+            _launched("gconv3x3_wgrad", libs.generic.mdd_gconv3x3_wgrad(
                 x.data_ptr(), ybar.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-                n, h, wd, groups, cpg, opg, splits, per, code, stream))
+                n, h, wd, groups, cpg, opg, *tile, splits, code, stream))
     return dw
 
 

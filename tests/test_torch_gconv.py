@@ -149,18 +149,32 @@ def test_wrappers_validate_inputs():
                                      ((100, 7, 7, 384), 6),
                                      ((2, 5, 5, 24), 3)])
 def test_wgrad_splits_cover_every_pixel_once(shape, G):
+    """The generic wgrad's splits (split s sums tiles [s * T // S, (s + 1)
+    * T // S)) take every tile once, none empty, and the tiles every pixel
+    once."""
     n, h, w, c = shape
-    m = n * h * w
-    splits, chunk = tg.wgrad_splits(m, G, c // G, c // G)
-    assert chunk % 16 == 0
-    assert (splits - 1) * chunk < m <= splits * chunk
-    assert splits * G >= 1
+    tile = tg.generic_tile(n, h, w)
+    tiles = tg.generic_tiles(n, h, w, tile)
+    for dtype in (torch.float32, torch.bfloat16):
+        splits = tg.generic_wgrad_splits(tiles, G, c // G, c // G, dtype)
+        spans = [range(s * tiles // splits, (s + 1) * tiles // splits)
+                 for s in range(splits)]
+        assert [t for span in spans for t in span] == list(range(tiles))
+        assert all(len(span) > 0 for span in spans)
+    tn, th, tw = tile
+    seen = [(i, r, q) for t in range(tiles)
+            for n0, h0, w0 in [tg.generic_tile_origin(t, h, w, tile)]
+            for i in range(n0, min(n, n0 + tn))
+            for r in range(h0, min(h, h0 + th))
+            for q in range(w0, min(w, w0 + tw))]
+    assert sorted(seen) == [(i, r, q) for i in range(n) for r in range(h)
+                            for q in range(w)]
 
 
 def test_dispatch_rule_picks_by_dtype_and_shape():
     """bfloat16 with 64 input and 64 output channels per group takes the
     tensor-core kernels; float32, other widths and other dtypes the
-    CUDA-core ones; images too wide for the halo tiles' shared memory too."""
+    generic ones; images too wide for the halo tiles' shared memory too."""
     for kind in ("fwd", "wgrad"):
         assert tg.use_tc(kind, torch.bfloat16, 64, 64, 28)
         assert tg.use_tc(kind, torch.bfloat16, 64, 64, 1)

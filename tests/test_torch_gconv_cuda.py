@@ -1,4 +1,5 @@
-"""The grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, CUDA cores,
+"""The grouped 3x3 conv kernels (``csrc/gconv3x3.cu``, the generic route:
+``mma.sync`` tensor cores on 2-D tiles, any group width and image width,
 ``csrc/gconv3x3_tc.cu``, bfloat16 tensor cores, ``csrc/gconv3x3_tf32.cu``,
 the float32 forward and wgrad on the tensor cores, and
 ``csrc/gconv3x3_narrow.cu``, 8 channels per group in both dtypes) on the
@@ -81,7 +82,7 @@ def test_kernels_match_plain_on_card(card, dtype, G, cpg, opg):
 ])
 def test_cuda_core_kernels_at_8_channels_per_group(card, dtype, N, H, G):
     """NF-RegNet-B1's grouped convs: 8 channels per group in and out, odd
-    group counts, on the generic CUDA-core kernels in both dtypes
+    group counts, on the generic kernels in both dtypes
     (``tc=False``: the rule takes the 8-channel kernels there): forward,
     input gradient and weight gradient against the plain versions."""
     c = G * 8
@@ -185,7 +186,7 @@ def test_double_backward_at_8_channels_per_group(card, dtype):
                                           (torch.bfloat16, 547)])
 def test_narrow_widest_width_and_one_past(card, dtype, widest):
     """The widest image whose halo fits a block's shared memory runs on the
-    8-channel kernels; one pixel wider goes to the generic CUDA-core ones;
+    8-channel kernels; one pixel wider goes to the generic ones;
     both match the plain version."""
     for width, sfx in ((widest, "_narrow"), (widest + 1, "")):
         x = torch.randn(2, 3, width, 16, device="cuda",
@@ -261,7 +262,7 @@ def test_tc_wgrad_is_bit_identical_on_repeat(card):
 def test_tf32_wgrad_matches_plain_on_card(card, N, H, W, G):
     """The float32 tensor-core wgrad (three TF32 passes) against the plain
     version in float32, to the float32 tolerance; the route takes it
-    unasked, and the CUDA-core wgrad stays reachable by ``tc=False``."""
+    unasked, and the generic wgrad stays reachable by ``tc=False``."""
     c = G * 64
     x = torch.randn(N, H, W, c, device="cuda", generator=card)
     ybar = torch.randn(N, H, W, c, device="cuda", generator=card)
@@ -326,7 +327,7 @@ def test_tf32_fwd_matches_plain_on_card(card, N, H, W, G):
     """The float32 tensor-core forward (three TF32 passes) and the input
     gradient (the same kernel on rot_swap(w)) against the plain version in
     float32 with TF32 off, to the float32 tolerance; the route takes it
-    unasked, and the CUDA-core forward stays reachable by ``tc=False``."""
+    unasked, and the generic forward stays reachable by ``tc=False``."""
     c = G * 64
     x = torch.randn(N, H, W, c, device="cuda", generator=card)
     w = torch.randn(3, 3, 64, c, device="cuda", generator=card) / 24.0
@@ -354,7 +355,7 @@ def test_tf32_fwd_is_bit_identical_on_repeat(card):
 @pytest.mark.cuda
 def test_tf32_fwd_widest_width_and_one_past(card):
     """The widest width the rule admits runs on the TF32 forward; one
-    pixel wider goes to the CUDA cores; both match the plain version."""
+    pixel wider goes to the generic kernel; both match the plain version."""
     widest = max(w for w in range(1, 512)
                  if tg.use_tf32("fwd", torch.float32, 64, 64, w))
     for width, key in ((widest, "gconv3x3_fwd_tf32"),
@@ -403,3 +404,119 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="tensor-core kernel takes"):
         tg.gconv3x3_wgrad(x[..., :8].float(), x[..., :8].float(), 2,
                           tc=True)
+
+
+def _generic_checks(x, w, ybar, G, dtype):
+    """Forward, dgrad and wgrad on the generic route (``tc=False``) against
+    the plain versions; exactly 2 generic forwards and 1 generic wgrad."""
+    xf, wf, ybf = x.float(), w.float(), ybar.float()
+    before = dict(tg.LAUNCHES)
+    _close(tg.gconv3x3_fwd(x, w, G, tc=False), tg.gconv3x3_ref(xf, wf, G),
+           dtype)
+    xr = xf.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(tg.gconv3x3_ref(xr, wf, G), xr, ybf)
+    _close(tg.gconv3x3_fwd(ybar, tg.rot_swap(w, G), G, tc=False), dx, dtype)
+    _close(tg.gconv3x3_wgrad(x, ybar, G, tc=False),
+           tg.gconv3x3_wgrad_ref(xf, ybf, G), dtype)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES == dict(
+        before, gconv3x3_fwd=before["gconv3x3_fwd"] + 2,
+        gconv3x3_wgrad=before["gconv3x3_wgrad"] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H,W,G,cpg,opg", [
+    (3, 9, 7, 3, 24, 40),     # ragged: tails in pixels, channels, columns
+    (2, 36, 36, 2, 64, 64),   # NFNet-L0's stage-1 site at 288^2
+    (3, 9, 7, 2, 64, 64),
+    (2, 5, 6, 4, 4, 16),      # channel rows under 16 bytes: plain loads
+    (2, 5, 6, 3, 8, 4),
+    (2, 14, 14, 11, 8, 8),    # NF-RegNet-B1's width
+    (1, 3, 5, 2, 3, 130),     # opg past one 64-wide column block, odd cpg
+    (1, 4, 4, 2, 72, 8),      # cpg past the 64-byte stages
+])
+def test_generic_kernels_match_plain_on_card(card, dtype, N, H, W, G, cpg,
+                                             opg):
+    """The generic kernels (tensor cores on 2-D tiles) against the plain
+    versions at every kind of shape they take."""
+    x = torch.randn(N, H, W, G * cpg, device="cuda", generator=card)
+    w = torch.randn(3, 3, cpg, G * opg, device="cuda",
+                    generator=card) / (3 * cpg ** 0.5)
+    ybar = torch.randn(N, H, W, G * opg, device="cuda", generator=card)
+    _generic_checks(x.to(dtype), w.to(dtype), ybar.to(dtype), G, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cpg,kind,width", [
+    (torch.bfloat16, 64, "fwd", 243),     # one past the bf16 wgmma forward
+    (torch.bfloat16, 64, "wgrad", 322),   # and its wgrad
+    (torch.float32, 64, "fwd", 65),       # one past the TF32 forward
+    (torch.float32, 64, "wgrad", 33),     # and its wgrad
+    (torch.float32, 8, "fwd", 296),       # one past the 8-channel kernels
+    (torch.bfloat16, 8, "fwd", 548),
+])
+def test_generic_route_one_past_each_limit(card, dtype, cpg, kind, width):
+    """One pixel past the widest width of each other route, the rule sends
+    the call to the generic kernel unasked, and it matches the plain
+    version."""
+    G = 2
+    assert tg._route("t", kind, None, dtype, cpg, cpg, width,
+                     torch.zeros(4)) == "generic"
+    assert tg._route("t", kind, None, dtype, cpg, cpg, width - 1,
+                     torch.zeros(4)) != "generic"
+    x = torch.randn(2, 3, width, G * cpg, device="cuda",
+                    generator=card).to(dtype)
+    w = (torch.randn(3, 3, cpg, G * cpg, device="cuda", generator=card)
+         / (3 * cpg ** 0.5)).to(dtype)
+    before = tg.LAUNCHES[f"gconv3x3_{kind}"]
+    if kind == "fwd":
+        _close(tg.gconv3x3_fwd(x, w, G),
+               tg.gconv3x3_ref(x.float(), w.float(), G), dtype)
+    else:
+        _close(tg.gconv3x3_wgrad(x, x, G),
+               tg.gconv3x3_wgrad_ref(x.float(), x.float(), G), dtype)
+    torch.cuda.synchronize()
+    assert tg.LAUNCHES[f"gconv3x3_{kind}"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generic_wgrad_is_bit_identical_on_repeat(card, dtype):
+    """The generic wgrad adds its per-split partials in a fixed order: two
+    calls give the same bits (NFNet-L0's stage-1 site at 288^2, where the
+    rule takes it unasked in float32)."""
+    x = torch.randn(100, 36, 36, 128, device="cuda", generator=card).to(dtype)
+    ybar = torch.randn(100, 36, 36, 128, device="cuda",
+                       generator=card).to(dtype)
+    a = tg.gconv3x3_wgrad(x, ybar, 2, tc=False)
+    assert torch.equal(a, tg.gconv3x3_wgrad(x, ybar, 2, tc=False))
+    if dtype == torch.float32:
+        assert torch.equal(a, tg.gconv3x3_wgrad(x, ybar, 2))
+
+
+@pytest.mark.cuda
+def test_float32_double_backward_at_288_stage_one(card):
+    """The float32 HVP at NFNet-L0's 36-wide stage-1 site (288^2): its
+    wgrads on the generic kernel (past the TF32 wgrad's 32), its forwards
+    and dgrads on the TF32 forward, against autograd through the plain
+    version."""
+    G, cpg = 2, 64
+    x = torch.randn(2, 36, 36, G * cpg, device="cuda", generator=card)
+    w = torch.randn(3, 3, cpg, G * cpg, device="cuda", generator=card) / 24.0
+    vx, vw = torch.randn_like(x), torch.randn_like(w) / 24.0
+
+    def hvp(conv):
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+        gx, gw = torch.autograd.grad(torch.sin(conv(xx, ww, G)).sum(),
+                                     (xx, ww), create_graph=True)
+        return torch.autograd.grad((gx * vx).sum() + (gw * vw).sum(),
+                                   (xx, ww))
+
+    before = dict(tg.LAUNCHES)
+    got = hvp(tg.gconv3x3)
+    torch.cuda.synchronize()
+    ran = {k for k in tg.LAUNCHES if tg.LAUNCHES[k] != before[k]}
+    assert ran == {"gconv3x3_wgrad", "gconv3x3_fwd_tf32"}
+    for a, b in zip(got, hvp(tg.gconv3x3_ref)):
+        _close(a, b, torch.float32)

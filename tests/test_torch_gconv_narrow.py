@@ -58,7 +58,7 @@ def test_rule_keeps_the_64_wide_routes_at_nfnet_l0():
 def test_tc_false_forces_the_generic_kernel_and_tc_true_raises(dtype):
     t = torch.zeros(4)
     for kind in ("fwd", "wgrad"):
-        assert tg._route("g", kind, False, dtype, 8, 8, 14, t) == "simt"
+        assert tg._route("g", kind, False, dtype, 8, 8, 14, t) == "generic"
         with pytest.raises(ValueError, match="tensor-core kernel takes"):
             tg._route("g", kind, True, dtype, 8, 8, 14, t)
 
@@ -67,7 +67,7 @@ def test_rule_refuses_other_widths_dtypes_and_too_wide_images():
     t = torch.zeros(4)
     for cpg, opg in ((8, 16), (16, 8), (4, 4), (16, 16)):
         assert not tg.use_narrow(F32, cpg, opg, 14)
-        assert tg._route("g", "fwd", None, F32, cpg, opg, 14, t) == "simt"
+        assert tg._route("g", "fwd", None, F32, cpg, opg, 14, t) == "generic"
     for dtype in (torch.float16, torch.float64):
         assert not tg.use_narrow(dtype, 8, 8, 14)
     for dtype, widest in ((F32, 295), (BF16, 547)):
@@ -78,7 +78,7 @@ def test_rule_refuses_other_widths_dtypes_and_too_wide_images():
         assert max(need) > tg._SMEM_BLOCK_MAX
         for kind in ("fwd", "wgrad"):
             assert tg._route("g", kind, None, dtype, 8, 8, widest + 1,
-                             t) == "simt"
+                             t) == "generic"
 
 
 @pytest.mark.parametrize("kind,itemsize,width,nbytes", [

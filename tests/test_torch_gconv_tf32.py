@@ -37,29 +37,29 @@ def _data(N, H, W, G, seed=0):
 
 def test_dispatch_rule_sends_the_float32_wgrad_to_tf32():
     """float32 wgrad at 64/64 -> TF32, and the float32 forward at 64/64 ->
-    its TF32 kernel too; float32 at other widths -> CUDA cores; bfloat16
+    its TF32 kernel too; float32 at other widths -> the generic kernels; bfloat16
     -> the bf16 tensor-core kernels; a width whose halo exceeds shared
-    memory -> CUDA cores."""
+    memory -> the generic kernels."""
     f32, bf16 = torch.float32, torch.bfloat16
     t = torch.zeros(4)
     for width in (7, 14, 28):
         assert tg.use_tf32("wgrad", f32, 64, 64, width)
         assert tg._route("w", "wgrad", None, f32, 64, 64, width, t) == "tf32"
         assert tg._route("w", "wgrad", True, f32, 64, 64, width, t) == "tf32"
-        assert tg._route("w", "wgrad", False, f32, 64, 64, width, t) == "simt"
+        assert tg._route("w", "wgrad", False, f32, 64, 64, width, t) == "generic"
         assert tg._route("w", "fwd", None, f32, 64, 64, width, t) == "tf32"
         assert tg._route("w", "wgrad", None, bf16, 64, 64, width, t) == "tc"
         assert not tg.use_tf32("wgrad", bf16, 64, 64, width)
         assert tg.use_tf32("fwd", f32, 64, 64, width)
     for cpg, opg in ((32, 64), (64, 32), (24, 40)):
         assert not tg.use_tf32("wgrad", f32, cpg, opg, 7)
-        assert tg._route("w", "wgrad", None, f32, cpg, opg, 7, t) == "simt"
+        assert tg._route("w", "wgrad", None, f32, cpg, opg, 7, t) == "generic"
     widest = max(w for w in range(1, 512) if tg.use_tf32("wgrad", f32, 64,
                                                            64, w))
     assert (tg.tf32_smem_bytes(widest) <= tg._SMEM_BLOCK_MAX
             < tg.tf32_smem_bytes(widest + 1))
     assert not tg.use_tf32("wgrad", f32, 64, 64, widest + 1)
-    assert tg._route("w", "wgrad", None, f32, 64, 64, widest + 1, t) == "simt"
+    assert tg._route("w", "wgrad", None, f32, 64, 64, widest + 1, t) == "generic"
     assert tg._route("w", "fwd", True, f32, 64, 64, 7, t) == "tf32"
     with pytest.raises(ValueError, match="tensor-core kernel takes"):
         tg._route("w", "fwd", True, f32, 32, 64, 7, t)

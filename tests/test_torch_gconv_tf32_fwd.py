@@ -39,7 +39,7 @@ def test_rule_admits_the_float32_forward_up_to_the_widest_width():
     """float32 at 64/64 takes the TF32 forward at every width whose halo
     tiles fit a block's shared memory (up to 64), and not one past it;
     bfloat16 keeps the bf16 tensor-core forward, other group widths the
-    CUDA cores."""
+    generic kernels."""
     t = torch.zeros(4)
     widest = _widest()
     assert widest == 64
@@ -48,8 +48,8 @@ def test_rule_admits_the_float32_forward_up_to_the_widest_width():
             < tg.tf32_fwd_smem_bytes(widest + 1))
     assert not tg.use_tf32("fwd", F32, 64, 64, widest + 1)
     assert tg._route("f", "fwd", None, F32, 64, 64, widest, t) == "tf32"
-    assert tg._route("f", "fwd", None, F32, 64, 64, widest + 1, t) == "simt"
-    assert tg._route("f", "fwd", False, F32, 64, 64, 7, t) == "simt"
+    assert tg._route("f", "fwd", None, F32, 64, 64, widest + 1, t) == "generic"
+    assert tg._route("f", "fwd", False, F32, 64, 64, 7, t) == "generic"
     with pytest.raises(ValueError, match="tensor-core kernel takes"):
         tg._route("f", "fwd", True, F32, 64, 64, widest + 1, t)
     for width in (7, 14, 28):
@@ -58,7 +58,7 @@ def test_rule_admits_the_float32_forward_up_to_the_widest_width():
         for cpg, opg in ((32, 64), (64, 32), (24, 40)):
             assert not tg.use_tf32("fwd", F32, cpg, opg, width)
             assert tg._route("f", "fwd", None, F32, cpg, opg, width,
-                             t) == "simt"
+                             t) == "generic"
 
 
 @pytest.mark.parametrize("width,nbytes", [(7, 173_312), (14, 180_480),
