@@ -182,6 +182,15 @@ into kernels against kernels.  Phases, each of which raises on failure:
    36-wide stage-1 sites (past its 32) on the generic wgrad; launches
    exact in both runs.
 
+Phases 9-11 need nothing of the others but phase 3's distilled set: once
+phase 3 has run, a second process of this script (``--worker``) runs them,
+in the order 11, 9, 10, on the same card beside phases 4-8 and 12-14,
+and its log is printed when both are done; a failure in either fails the
+run, and either stops the other.  The kernel checks and timed rows of
+phases 9 (d) and 14 run before phase 3, after phase 2, so that every
+kernel time is taken with nothing else on the card; the step and wall
+times of phases 4-14 are taken beside the other process.
+
 Phase 2 also times the generic kernels and the TF32 kernels in float32
 (the dtype of phases 4-8's eval students) beside cuDNN's float32 call with
 TF32 off and on.  Phase 2 also runs a double-backward HVP at 8 channels per
@@ -1323,7 +1332,9 @@ def distill_cli_cfg(Config, **kw):
     headline step (nq=100, mb=100, syn_steps=8, bf16, forward-HVP, the
     kernels), 4 outer steps with eval blocks of 2 parallel students at
     iterations 0 and 3, a checkpoint at 2, on 1000 synthetic train pairs
-    and a 1000 x 5 test split (Flickr30K's test shape)."""
+    and a 1000 x 5 test split (Flickr30K's test shape); ``ipc=50``: the
+    reference's gate skips the two image grids, and ``distilled_{it}.npz``
+    is written all the same."""
     base = dict(dataset="synthetic", synthetic_size=1000,
                 synthetic_test_size=1000, image_encoder="nfnet",
                 image_size=224, text_encoder="bert",
@@ -1334,7 +1345,7 @@ def distill_cli_cfg(Config, **kw):
                 inner_dtype="bfloat16", hvp_mode="forward", pallas_gconv=True,
                 Iteration=3, eval_it=3, num_eval=2, epoch_eval_train=1,
                 batch_train=128, batch_size_test=128, k_test=128,
-                parallel_eval=True, std=True, draw=True, ckpt_it=2,
+                parallel_eval=True, std=True, draw=True, ipc=50, ckpt_it=2,
                 disable_wandb=True, seed=0, name="phase8",
                 buffer_path="buffers", save_dir="logged_files")
     return Config(**{**base, **kw})
@@ -1701,12 +1712,11 @@ def check_kernels_regnet(gc):
 
 
 def zoo_path(gc, Config, syn, phase3_steps_per_s: float):
-    """Phase 9: (d)'s kernel checks and float32 step first, then (a) each
+    """Phase 9: (d)'s float32 step first (its kernel checks,
+    :func:`check_kernels_regnet`, run alone before phase 3), then (a) each
     tower's buffer -> distill run in one working directory (one caption
-    cache for all), (b) ResNet-50, (c) the cross-tower evals.  -> (the
-    NF-RegNet-B1 rows for the kernels line, the phase's summary)."""
-    rows = check_kernels_regnet(gc)
-    torch.cuda.empty_cache()
+    cache for all), (b) ResNet-50, (c) the cross-tower evals.  -> the
+    phase's summary."""
     f32 = compare_f32(gc, main_cfg(Config, image_encoder="nf_regnet"))
     torch.cuda.empty_cache()
     out = {"compare_f32_nf_regnet": f32, "towers": {}, "cross_eval": {}}
@@ -1739,7 +1749,7 @@ def zoo_path(gc, Config, syn, phase3_steps_per_s: float):
         print(f"phase 9 eval under {name}: wall {r['wall_s']:.1f} s, peak "
               f"{r['max_memory_allocated_gib']:.2f} GiB, r_mean "
               f"{[round(x['r_mean'], 2) for x in r['results']]}", flush=True)
-    return rows, out
+    return out
 
 
 # phase 10 (a)/(b): the last towers of the JAX zoo at 224^2, each with
@@ -1944,9 +1954,10 @@ def zca_path(gc, Config, size: int = 32):
 
     cli.ZCAWhitening = Keep
     try:
+        # ipc=1: the ZCA grids are among what the check reads back
         dis = zoo_distill_path(gc, Config, "convnet", size, zca=True,
-                               save_pt=True, draw=True, name="phase10_zca",
-                               buffer_path="buffers_zca")
+                               save_pt=True, draw=True, ipc=1,
+                               name="phase10_zca", buffer_path="buffers_zca")
     finally:
         cli.ZCAWhitening = zca_cls
     dis.pop("syn")
@@ -2612,6 +2623,7 @@ DP_PARTS = {"a": dp_step_f32, "b": dp_headline, "c": dp_distill_cli,
 def dp_rank_main(job_path: str) -> int:
     """A rank of phase 13: join the ranks (torchrun's environment), run
     the job's parts, write ``phase13_rank{r}.json`` beside the job."""
+    exit_with_parent()
     sys.path.insert(0, str(HERE))
     import torch.distributed as dist
 
@@ -2826,15 +2838,14 @@ def check_kernels_288(gc):
     return [row]
 
 
-def phase14(gc, Config, work: str) -> tuple:
-    """Phase 14: the 288^2 path.  :func:`check_kernels_288`, then the
-    buffer CLI (``RUN_288``) in ``work`` and the eval CLI on a seeded set,
-    each with its launches held exactly to :func:`expert_launches` /
+def phase14(gc, Config, work: str, rows: list) -> tuple:
+    """Phase 14: the 288^2 path (its kernel checks, ``rows`` of
+    :func:`check_kernels_288`, run alone before phase 3): the buffer CLI
+    (``RUN_288``) in ``work`` and the eval CLI on a seeded set, each with
+    its launches held exactly to :func:`expert_launches` /
     :func:`eval_launches` (the rule's route per site width), and both with
     the stage-1 wgrads on the generic kernel and no generic forward.  ->
-    (the kernel rows, the phase's summary, its launches per run)."""
-    rows = check_kernels_288(gc)
-    torch.cuda.empty_cache()
+    (the phase's summary, its launches per run)."""
     with contextlib.chdir(work):
         buf = expert_path(gc, Config, "288", **RUN_288)
     torch.cuda.empty_cache()
@@ -2855,7 +2866,7 @@ def phase14(gc, Config, work: str) -> tuple:
           f"{buf['max_memory_allocated_gib']:.2f} GiB; eval CLI wall "
           f"{ev['wall_s']:.1f} s, peak {ev['max_memory_allocated_gib']:.2f}"
           f" GiB; launches {json.dumps(launches)}", flush=True)
-    return rows, out, launches
+    return out, launches
 
 
 def kernel_entries(rows, launches, launches_eval, launches_expert,
@@ -2980,6 +2991,148 @@ def kernel_entries(rows, launches, launches_eval, launches_expert,
     return entries
 
 
+# Phases 9-11 need nothing of phases 4-8 and 12-14 but phase 3's set: a
+# second process of this script (WORKER_ARG) runs them beside those, on the
+# same card, heaviest on memory first (phase 11's ``for`` step, ~39 GiB,
+# meets phases 4-7, at most ~20 GiB).  Every kernel's timed row runs
+# before it starts, so no kernel time is taken beside the other process.
+WORKER_ARG = "--worker"
+WORKER_PHASES = ("11", "9", "10")
+WORKER_TIMEOUT = 1000    # seconds from its start to its end
+
+
+def exit_with_parent() -> None:
+    """Stop this process once the process that started it is gone, so a
+    script stopped from outside leaves nothing running on the card."""
+    import threading
+
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(2)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def share_host(procs: int = 2) -> None:
+    """The processes that run side by side share the host's cores."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // procs))
+
+
+def lap_clock(worker: dict | None = None):
+    """-> ``lap(phase)``: prints the phase's wall seconds, empties the
+    allocator's cache, and fails at once if ``worker`` has failed."""
+    t_lap = [time.perf_counter()]
+
+    def lap(phase: str) -> None:   # wall time per phase, for the budget
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
+        torch.cuda.empty_cache()
+        if worker is not None and worker["proc"].poll():
+            join_worker(worker)    # raises with the worker's log
+    return lap
+
+
+def worker_main(job_path: str) -> int:
+    """The second process: phases :data:`WORKER_PHASES` on the job's set
+    (phase 3's); their launch counts go to the job's ``out``."""
+    exit_with_parent()
+    sys.path.insert(0, str(HERE))
+    from multimodal_dataset_distillation_tpu_torch.config import Config
+    from multimodal_dataset_distillation_tpu_torch.ops import gconv as gc
+
+    with open(job_path) as f:
+        job = json.load(f)
+    share_host()
+    gc.build()    # built by the first process: this loads the libraries
+    # the TF32 settings phase 9 began with when it ran in the first process
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with np.load(job["syn"]) as z:
+        syn = (z["image_syn"], z["text_syn"], float(z["syn_lr_img"]),
+               float(z["syn_lr_txt"]))
+    lap = lap_clock()
+    out = {}
+    for phase in WORKER_PHASES:
+        if phase == "9":
+            zoo = zoo_path(gc, Config, syn, job["phase3_steps_per_s"])
+            launches = {"compare_f32_nf_regnet":
+                        zoo["compare_f32_nf_regnet"]["launches"]}
+            for enc, r in zoo["towers"].items():
+                launches[f"buffer_{enc}"] = r["buffer"]["launches"]
+                launches[f"distill_{enc}"] = r["distill"]["launches"]
+            launches["buffer_resnet50"] = zoo["resnet50"]["launches"]
+            for name, r in zoo["cross_eval"].items():
+                launches[f"eval_{name}"] = r["launches"]
+            out["zoo"] = launches
+        else:
+            fn = {"10": phase10, "11": phase11}[phase]
+            out[phase] = fn(gc, Config)[1]
+        lap(phase)
+    with open(job["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def spawn_worker(work: str, syn, phase3_steps_per_s: float) -> dict:
+    """Start :func:`worker_main` on phase 3's set, its output to a log in
+    ``work``."""
+    image_syn, text_syn, lr_img, lr_txt = syn
+    job = {"syn": os.path.join(work, "worker_syn.npz"),
+           "out": os.path.join(work, "worker_out.json"),
+           "phase3_steps_per_s": phase3_steps_per_s}
+    np.savez(job["syn"], image_syn=image_syn, text_syn=text_syn,
+             syn_lr_img=np.float32(lr_img), syn_lr_txt=np.float32(lr_txt))
+    path = os.path.join(work, "worker_job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    log = open(os.path.join(work, "worker.log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, str(HERE / "chip_smoke.py"), WORKER_ARG, path],
+        cwd=str(HERE), stdout=log, stderr=subprocess.STDOUT)
+    print(f"phases {', '.join(WORKER_PHASES)}: started in a second process "
+          f"(pid {proc.pid}) beside phases 4-8 and 12-14", flush=True)
+    return {"proc": proc, "log": log, "job": job,
+            "deadline": time.time() + WORKER_TIMEOUT}
+
+
+def stop_worker(worker: dict) -> None:
+    """Stop the worker if it still runs, and print the end of its log."""
+    if worker["proc"].poll() is None:
+        worker["proc"].kill()
+        worker["proc"].wait()
+        worker["log"].seek(0)
+        print("--- the second process, stopped; the end of its log ---\n"
+              + worker["log"].read()[-6000:], flush=True)
+
+
+def join_worker(worker: dict) -> dict:
+    """Wait for the worker (until its deadline), print its log; -> its
+    launch counts.  Raises if it failed or ran out of time."""
+    proc = worker["proc"]
+    t0 = time.perf_counter()
+    while proc.poll() is None and time.time() < worker["deadline"]:
+        time.sleep(0.5)
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    worker["log"].seek(0)
+    text = worker["log"].read()
+    names = ", ".join(WORKER_PHASES)
+    print(f"--- phases {names}, the second process (waited "
+          f"{time.perf_counter() - t0:.1f} s for it) ---", flush=True)
+    print(text, end="" if text.endswith("\n") else "\n", flush=True)
+    print("--- end of the second process ---", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"phases {names}: the second process exited "
+                             f"{proc.returncode}")
+    with open(worker["job"]["out"]) as f:
+        return json.load(f)
+
+
 def main() -> int:
     refused = env_overrides()
     if refused:
@@ -2989,6 +3142,8 @@ def main() -> int:
         return 4
     if len(sys.argv) > 2 and sys.argv[1] == DP_RANK_ARG:
         return dp_rank_main(sys.argv[2])
+    if len(sys.argv) > 2 and sys.argv[1] == WORKER_ARG:
+        return worker_main(sys.argv[2])
     if not (HERE / PKG / "csrc" / "gconv3x3_tc.cu").is_file():
         print(f"chip_smoke: {PKG}/ is not beside this script", file=sys.stderr)
         return 2
@@ -3032,77 +3187,68 @@ def main() -> int:
                         f"generic_smem_bytes({kind!r}, {dtype}, {cpg}, "
                         f"{opg}) differs from gconv3x3.cu")
 
-    t_lap = [time.perf_counter()]
-
-    def lap(phase: str) -> None:   # wall time per phase, for the budget
-        now = time.perf_counter()
-        print(f"phase {phase}: {now - t_lap[0]:.1f} s", flush=True)
-        t_lap[0] = now
-        torch.cuda.empty_cache()
-
+    lap = lap_clock()
     rows = check_kernels(gc)
     check_hvp(gc)
     lap("2")
+    # the kernel checks and timed rows of phases 9 and 14, here, so that
+    # every kernel is timed with nothing else on the card
+    regnet_rows = check_kernels_regnet(gc)
+    rows_288 = check_kernels_288(gc)
+    lap("9 (d) and 14 kernels")
     torch.backends.cudnn.allow_tf32 = True   # the library defaults again
     cfg = main_cfg(Config)
     path, syn = main_path(gc, cfg)
     gconv_env_check(gc, Config)
     lap("3")
-    f32 = compare_f32(gc, cfg)
-    lap("4")
-    ev = eval_path(gc, Config, syn)
-    lap("5")
-    compare_eval(gc, Config, syn)
-    lap("6")
     experts = {}
     # phase 7's working directories: (a)'s buffers and caption caches feed
-    # phases 8 and 13 (c), the small runs' caches phase 13 (d)
+    # phases 8 and 13 (c), the small runs' caches phase 13 (d) and 14
     tmp_dirs = tempfile.TemporaryDirectory()
     tmp = tmp_dirs.name
-    for run in EXPERT_RUNS:   # (a) alone: phase 8 reads its buffers
-        work = os.path.join(tmp, "a" if run == "a" else "small")
-        os.makedirs(work, exist_ok=True)
-        with contextlib.chdir(work):
-            experts[run] = expert_path(gc, Config, run)
-        torch.cuda.empty_cache()
-    compare_expert(gc, Config)
-    lap("7")
-    with contextlib.chdir(os.path.join(tmp, "a")):
-        cli = distill_cli_path(gc, Config, path["steps_per_s"])
-    lap("8")
-    regnet_rows, zoo = zoo_path(gc, Config, syn, path["steps_per_s"])
-    lap("9")
-    _, launches_p10 = phase10(gc, Config)
-    lap("10")
-    _, launches_p11 = phase11(gc, Config)
-    lap("11")
-    _, launches_p12 = phase12(gc, Config)
-    lap("12")
-    _, launches_p13 = phase13(gc, Config, os.path.join(tmp, "a"),
-                              os.path.join(tmp, "small"),
-                              path["steps_per_s"])
-    lap("13")
-    # phase 7's small runs left the 256-pair caption caches there
-    rows_288, _, launches_p14 = phase14(gc, Config,
-                                        os.path.join(tmp, "small"))
+    worker = spawn_worker(tmp, syn, path["steps_per_s"])
+    try:
+        share_host()
+        lap = lap_clock(worker)
+        f32 = compare_f32(gc, cfg)
+        lap("4")
+        ev = eval_path(gc, Config, syn)
+        lap("5")
+        compare_eval(gc, Config, syn)
+        lap("6")
+        for run in EXPERT_RUNS:   # (a) alone: phase 8 reads its buffers
+            work = os.path.join(tmp, "a" if run == "a" else "small")
+            os.makedirs(work, exist_ok=True)
+            with contextlib.chdir(work):
+                experts[run] = expert_path(gc, Config, run)
+            torch.cuda.empty_cache()
+        compare_expert(gc, Config)
+        lap("7")
+        with contextlib.chdir(os.path.join(tmp, "a")):
+            cli = distill_cli_path(gc, Config, path["steps_per_s"])
+        lap("8")
+        _, launches_p12 = phase12(gc, Config)
+        lap("12")
+        _, launches_p13 = phase13(gc, Config, os.path.join(tmp, "a"),
+                                  os.path.join(tmp, "small"),
+                                  path["steps_per_s"])
+        lap("13")
+        _, launches_p14 = phase14(gc, Config, os.path.join(tmp, "small"),
+                                  rows_288)
+        lap("14")
+        side = join_worker(worker)
+    finally:
+        stop_worker(worker)
+        worker["log"].close()
     tmp_dirs.cleanup()
-    lap("14")
 
     launches = {**f32["launches"], **{k: path["launches"][k]
                                       for k in MAIN_PATH_PER_STEP}}
-    launches_zoo = {"compare_f32_nf_regnet":
-                    zoo["compare_f32_nf_regnet"]["launches"]}
-    for enc, r in zoo["towers"].items():
-        launches_zoo[f"buffer_{enc}"] = r["buffer"]["launches"]
-        launches_zoo[f"distill_{enc}"] = r["distill"]["launches"]
-    launches_zoo["buffer_resnet50"] = zoo["resnet50"]["launches"]
-    for name, r in zoo["cross_eval"].items():
-        launches_zoo[f"eval_{name}"] = r["launches"]
     print(json.dumps({"kernels": kernel_entries(
         rows, launches, ev["launches"],
         {run: e["launches"] for run, e in experts.items()},
-        cli["launches"], regnet_rows, launches_zoo, launches_p10,
-        launches_p11, launches_p12, launches_p13, rows_288, launches_p14)}),
+        cli["launches"], regnet_rows, side["zoo"], side["10"], side["11"],
+        launches_p12, launches_p13, rows_288, launches_p14)}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
