@@ -55,6 +55,13 @@ into kernels against kernels.  Phases, each of which raises on failure:
    read around it.
 6. One ``evaluate_synset`` of that path with the kernels against the same
    on ``F.conv2d`` (TF32 off), from the same init, seeds and batches.
+   Then (b) one eval block of 2 students as the distill CLI runs it
+   (``evaluate_synset_parallel`` on phase 3's set, the headline recipe's
+   4 + 1 epochs at batch 50, a 64 x 5 test split, the library's TF32
+   defaults) twice from the same init and set: the metrics equal and each
+   student's trained weights and score matrices (before the top-k mask
+   and after it, both ways) ``torch.equal``; launches exactly phase 5's
+   formula at 2 students, each time.
 7. The expert entry point: ``cli/buffer.main`` at full width (NFNet-L0
    224^2, batch 128, BERT-base random-init from the seed for the caption
    caches, the kernels on), four runs: (a) 2 experts x 1 epoch, float32,
@@ -1026,6 +1033,95 @@ def compare_eval(gc, Config, syn, **kw):
     for k in METRIC_KEYS:
         out[f"{k}_kernel_plain"] = [float(a["val"][k]), float(b["val"][k])]
     print("eval kernels vs F.conv2d: " + json.dumps(out), flush=True)
+    return out
+
+
+#: phase 6 (b)'s eval block: tools/torch_quality_nfnet.sh's
+EVAL_REPRO = dict(num_eval=2, epoch_eval_train=4, batch_train=50,
+                  synthetic_test_size=64, batch_size_test=64, distill=True)
+
+
+def eval_repro(gc, Config, syn, **kw):
+    """Phase 6 (b): one eval block of 2 students, as the distill CLI's
+    (``evaluate_synset_parallel`` from ``make_eval_initializer``'s seeded
+    inits, a fresh trainer), run twice from the same init and set.  Every
+    metric equal, and per student the trained weights and the score
+    matrices (before the top-k mask, i2t and t2i after it) ``torch.equal``;
+    launches phase 5's formula at 2 students each time.  A miss fails the
+    run.  cuDNN's TF32 as the library's default (phase 5's), and the TF32
+    settings put back as they were after."""
+    from multimodal_dataset_distillation_tpu_torch.cli.distill import (
+        make_eval_initializer)
+    from multimodal_dataset_distillation_tpu_torch.data import get_dataset
+    from multimodal_dataset_distillation_tpu_torch.engine import eval as ev
+    from multimodal_dataset_distillation_tpu_torch.models.clip_model import (
+        build_bi_encoder)
+    from multimodal_dataset_distillation_tpu_torch.utils.flat import (
+        flatten_params)
+
+    image_syn, text_syn, lr_img, _ = syn
+    cfg = eval_cfg(Config, lr_net=lr_img, **{**EVAL_REPRO, **kw})
+    _, testloader, _, _ = get_dataset(cfg)
+    bert = text_cache(cfg)
+    model = build_bi_encoder(cfg)
+    init = make_eval_initializer(cfg)
+    want = eval_launches(cfg, len(image_syn))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True    # PyTorch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    try:
+        for _ in range(2):
+            inits = [init(model, cfg.seed + 1000 + j)
+                     for j in range(cfg.num_eval)]
+            reuse = {}
+            torch.cuda.synchronize()
+            gc.reset_launches()
+            t = time.perf_counter()
+            _, vals = ev.evaluate_synset_parallel(
+                cfg.num_eval, model, inits, image_syn, text_syn, testloader,
+                cfg, bert, reuse=reuse)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = dict(gc.LAUNCHES)
+            if launches != want:
+                raise AssertionError(f"phase 6 (b) launches {launches}, "
+                                     f"expected {want}")
+            students = [reuse["trainer"].model_for(j)
+                        for j in range(cfg.num_eval)]
+            sims = [ev.score_matrix(testloader, m, bert) for m in students]
+            runs.append({
+                "vals": vals, "wall_s": wall,
+                "weights": [flatten_params(m).detach().clone()
+                            for m in students],
+                "scores": [(s, ev.topk_score_matrix(s, cfg.k_test),
+                            ev.topk_score_matrix(s.T, cfg.k_test))
+                           for s in sims]})
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    a, b = runs
+    out = {"num_eval": cfg.num_eval, "pairs": len(image_syn),
+           "test_images": cfg.synthetic_test_size,
+           "wall_s": [r["wall_s"] for r in runs],
+           "r_mean": [[v["r_mean"] for v in r["vals"]] for r in runs],
+           "metrics_equal": a["vals"] == b["vals"],
+           "weights_equal": all(torch.equal(x, y) for x, y in
+                                zip(a["weights"], b["weights"])),
+           "scores_equal": all(torch.equal(x, y) for sa, sb in
+                               zip(a["scores"], b["scores"])
+                               for x, y in zip(sa, sb)),
+           "launches": want}
+    print("phase 6 (b) eval block twice: " + json.dumps(out), flush=True)
+    if not (out["metrics_equal"] and out["weights_equal"]
+            and out["scores_equal"]):
+        raise AssertionError(f"phase 6 (b): two identical eval blocks "
+                             f"differ: {out}")
+    for val in a["vals"]:
+        if not all(math.isfinite(v) and 0.0 <= v <= 100.0
+                   for v in val.values()):
+            raise AssertionError(f"phase 6 (b): bad metrics {val}")
     return out
 
 
@@ -3216,6 +3312,8 @@ def main() -> int:
         lap("5")
         compare_eval(gc, Config, syn)
         lap("6")
+        eval_repro(gc, Config, syn)
+        lap("6 (b)")
         for run in EXPERT_RUNS:   # (a) alone: phase 8 reads its buffers
             work = os.path.join(tmp, "a" if run == "a" else "small")
             os.makedirs(work, exist_ok=True)

@@ -8,7 +8,9 @@ text encoder runs outside: batches carry cached text embeddings.
 
 Dropout, DropPath and the ``--device_augment`` plan draw from one
 ``torch.Generator`` per trainer, seeded at :meth:`BiEncoderTrainer.reset`,
-so one seed gives one run.  Loss and
+and each step's backward pass takes only cuDNN's deterministic algorithms
+(:func:`deterministic_cudnn`), so one seed gives one run, bit for bit,
+on the card as on the CPU.  Loss and
 accuracy stay on the device until the end of an epoch, which reads them
 once.
 
@@ -25,6 +27,7 @@ the ranks, as the JAX package shards K over ``data``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -56,6 +59,23 @@ def torch_sgd(params: Iterable[torch.Tensor], lr: float,
     for group in opt.param_groups:
         group["lr"] = lr
     return opt
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms only, inside the block.  Left to its
+    heuristics, cuDNN takes the weight gradient of the NF stems' first conv
+    (3 -> 16 channels, 3x3, stride 2, at 224^2) with an algorithm whose
+    sums land in a different order from call to call, so two students
+    trained from one init and one seed drifted apart.  Every other op of
+    NFNet-L0's training step, and the scoring pass, repeated bit for bit
+    without it (``tools/torch_eval_repro.py``)."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
 
 
 def _epoch_means(per: List[Tuple[torch.Tensor, torch.Tensor, int]]
@@ -202,7 +222,8 @@ class BiEncoderTrainer:
         loss, acc = out
         self.opt_img.zero_grad(set_to_none=True)
         self.opt_txt.zero_grad(set_to_none=True)
-        loss.backward()
+        with deterministic_cudnn():
+            loss.backward()
         self._sum_grads()
         self.opt_img.step()
         self.opt_txt.step()

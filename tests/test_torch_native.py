@@ -7,9 +7,22 @@ with PIL from seeded numpy pixels) to the same bytes, and the two
 ``make_train_transform_native`` give the same pixels under the same
 ``augrng.seed_item`` seed (both sides run the same C++, PIL and numpy code
 on the same inputs, so equality is exact).
+
+The JAX package builds its library into one fixed temporary name and
+remembers a failed load for the life of the process, so pytest-xdist
+workers that build it at once (each collects ``tests/test_fastimage.py``,
+whose module-level ``skipif`` loads it) can leave some of them without it.
+The comparisons here take it through the ``jax_fastimage`` fixture
+(:func:`load_jax_fastimage`), which repairs that under a file lock; if
+the library still does not load, they fail.
 """
 
+import ctypes
+import fcntl
 import io
+import os
+import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +42,66 @@ from multimodal_dataset_distillation_tpu_torch.utils import augrng
 from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SIZE = 32
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _loads(path: str) -> bool:
+    try:
+        ctypes.CDLL(path)
+        return True
+    except OSError:
+        return False
+
+
+def load_jax_fastimage():
+    """The JAX package's ``fastimage`` library in this process.  Where
+    ``jnative.get_fastimage()`` gives ``None`` or raises ``OSError`` (a
+    sibling process's build lost the race on its fixed temporary name),
+    then under a lock in the gitignored ``build/``: a missing or unloadable
+    ``_fastimage.so`` is rebuilt from the package's ``fastimage.cpp`` to a
+    unique temporary name and moved into place, and the package's
+    remembered failure (``_tried``, ``_lib``) is cleared before it loads
+    again.  -> the library, or ``None`` if it never loads."""
+    try:
+        lib = jnative.get_fastimage()
+    except OSError:
+        lib = None
+    if lib is not None:
+        return lib
+    (ROOT / "build").mkdir(exist_ok=True)
+    with open(ROOT / "build" / "jax_fastimage.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for _ in range(3):
+            if not _loads(jnative._SO):
+                fd, tmp = tempfile.mkstemp(suffix=".so",
+                                           dir=os.path.dirname(jnative._SO))
+                os.close(fd)
+                try:
+                    subprocess.run(
+                        ["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
+                         jnative._SRC, "-ljpeg", "-o", tmp],
+                        check=True, capture_output=True, timeout=300)
+                    os.replace(tmp, jnative._SO)
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
+            with jnative._lock:
+                jnative._tried, jnative._lib = False, None
+            try:
+                lib = jnative.get_fastimage()
+            except OSError:
+                lib = None
+            if lib is not None:
+                return lib
+    return None
+
+
+@pytest.fixture(scope="module")
+def jax_fastimage():
+    lib = load_jax_fastimage()
+    assert lib is not None, ("g++ and libjpeg are present: the JAX "
+                             "package's library must load")
+    return lib
 
 
 def _encoded(w, h, seed, fmt="JPEG"):
@@ -49,7 +122,7 @@ def test_fastimage_builds_into_build_dir():
 
 
 @pytest.mark.parametrize("w,h", [(320, 240), (97, 203), (40, 40)])
-def test_decode_batch_same_bytes_as_jax(w, h):
+def test_decode_batch_same_bytes_as_jax(w, h, jax_fastimage):
     data = _encoded(w, h, seed=w)
     assert native.is_jpeg(data) and native.read_dims(data) == (w, h)
     assert native.read_dims(data) == jnative.read_dims(data)
@@ -79,7 +152,7 @@ def test_bad_input_is_reported():
 
 @pytest.mark.parametrize("item,kind", [(0, "jpeg"), (1, "jpeg"), (2, "png"),
                                        (3, "pil")])
-def test_native_transform_same_pixels_as_jax(item, kind):
+def test_native_transform_same_pixels_as_jax(item, kind, jax_fastimage):
     """JPEG bytes take the C++ pool; PNG bytes and PIL images take the PIL
     path; each equals the JAX package's transform under one seed."""
     data = _encoded(120 + 7 * item, 90, seed=item,
@@ -99,7 +172,7 @@ def test_native_transform_same_pixels_as_jax(item, kind):
     np.testing.assert_array_equal(out[0], out[1])
 
 
-def test_native_decode_is_the_default_train_transform():
+def test_native_decode_is_the_default_train_transform(jax_fastimage):
     """``native_decode`` (the Config default) installs the C++ pool's
     transform: a train item equals the JAX package's under one seed."""
     kw = dict(dataset="synthetic", image_size=SIZE, synthetic_size=3,

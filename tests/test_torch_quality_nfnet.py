@@ -79,17 +79,17 @@ def _jax_line(script: str, cli: str) -> list:
     raise AssertionError(f"no {cli} line in {script}")
 
 
-def _port_lines() -> dict:
+def _port_lines(**knobs) -> dict:
     """The recipe's own buffer and distill argument lists (PRINT_ARGS=1),
-    with none of its knobs set."""
+    with none of its knobs set but ``knobs``."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("SEED", "NEXP", "TEPOCHS", "ITERS", "EVAL_IT",
                         "NUM_EVAL", "CKPT_IT", "PALLAS", "BUFFERS",
-                        "RESUME", "WORK")}
+                        "RESUME", "WORK", "LOAD_ALL")}
     out = subprocess.run(
         ["bash", str(REPO / "tools" / "torch_quality_nfnet.sh")],
-        env={**env, "PRINT_ARGS": "1"}, check=True, capture_output=True,
-        text=True).stdout
+        env={**env, "PRINT_ARGS": "1", **knobs}, check=True,
+        capture_output=True, text=True).stdout
     return {line.split()[0]: shlex.split(line)[1:]
             for line in out.splitlines()}
 
@@ -118,6 +118,21 @@ def test_recipe_sets_what_the_jax_recipe_sets(cli, kind, defaults):
         assert (pcfg.num_queries, pcfg.mini_batch_size, pcfg.syn_steps,
                 pcfg.inner_dtype, pcfg.hvp_mode) == (100, 100, 8,
                                                      "bfloat16", "forward")
+
+
+@pytest.mark.parametrize("knob", [None, "0", "1"])
+def test_load_all_knob(knob):
+    """``LOAD_ALL=1`` adds ``--load_all True`` to the distill line alone,
+    and both packages' parsers read it there (the JAX distill CLI has the
+    flag); unset or 0, the line is as before."""
+    lines = _port_lines(**({} if knob is None else {"LOAD_ALL": knob}))
+    want = knob == "1"
+    assert ("--load_all" in lines["distill"]) is want
+    assert "--load_all" not in lines["buffer"]
+    for parse, config in ((pparse_config, Config), (jparse_config, JConfig)):
+        cfg = parse(lines["distill"], defaults=config(image_encoder="nfnet",
+                                                      Iteration=5000))
+        assert cfg.load_all is want
 
 
 @pytest.mark.parametrize("var", ["MDD_PALLAS_GCONV", "MDD_FUSED_JVP",

@@ -26,14 +26,17 @@
 # NEVAL (eval_distilled students per set, 3; 0 skips the scoring);
 # BUFFERS (another run's work dir: its experts are reused and none are
 # trained); RESUME (a distill_ckpt_{it}.pt: --resume_from; its run has no
-# iteration-0 set, so set NEVAL=0).  PRINT_ARGS=1 prints the buffer and
-# distill command lines and exits.  Exits non-zero on a crash, a NaN
+# iteration-0 set, so set NEVAL=0); LOAD_ALL (1: --load_all True, every
+# buffer file read once and each trajectory's device copy kept, where the
+# default re-reads a file at each change of file).  PRINT_ARGS=1 prints
+# the buffer and distill command lines and exits.  Exits non-zero on a crash, a NaN
 # bail-out or a missing artifact; a quality miss is printed, not fatal.
 #
 # On the card, the JAX recipe's run:
 #   SEED=0 CKPT_IT=50 bash tools/torch_quality_nfnet.sh
-# and its 400-iteration soak (tools/quality_soak2000.sh's shape):
-#   NEXP=3 ITERS=400 EVAL_IT=100 CKPT_IT=100 NEVAL=0 \
+# and its 400-iteration soak (tools/quality_soak2000.sh's shape, its
+# trajectories resident as the JAX soak's):
+#   NEXP=3 ITERS=400 EVAL_IT=100 CKPT_IT=100 NEVAL=0 LOAD_ALL=1 \
 #     bash tools/torch_quality_nfnet.sh
 # tools/torch_quality_summary.py reads the work directories (--rule: the
 # decision rule across the runs).
@@ -74,6 +77,7 @@ DISTILL_ARGS=("${COMMON[@]}" --num_queries=100 --mini_batch_size=100
   --hvp_mode=forward --std True --pallas_gconv "$PALLAS" --draw True --ipc=50)
 [[ -n ${CKPT_IT:-} ]] && DISTILL_ARGS+=(--ckpt_it="$CKPT_IT")
 [[ -n ${RESUME:-} ]] && DISTILL_ARGS+=(--resume_from="$(realpath "$RESUME")")
+[[ ${LOAD_ALL:-0} == 1 ]] && DISTILL_ARGS+=(--load_all True)
 if [[ -n ${PRINT_ARGS:-} ]]; then
   echo "buffer ${BUFFER_ARGS[*]}"
   echo "distill ${DISTILL_ARGS[*]}"
