@@ -17,6 +17,7 @@ from typing import Any, Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..utils import augrng
+from ..utils.logging import span
 
 
 class Loader:
@@ -165,5 +166,7 @@ class ArrayPairLoader:
                    if self.seed is not None else np.random)
             rng.shuffle(idx)
         for i in range(len(self)):
-            b = idx[i * self.batch_size:(i + 1) * self.batch_size]
-            yield self.images[b], self.texts[b]
+            with span("data.batch"):
+                b = idx[i * self.batch_size:(i + 1) * self.batch_size]
+                batch = self.images[b], self.texts[b]
+            yield batch

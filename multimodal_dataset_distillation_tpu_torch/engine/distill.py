@@ -62,6 +62,7 @@ BatchNorm, and a bi-encoder with an image projection.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -79,9 +80,17 @@ from ..ops.contrastive import RAW_LOG_SCALE, _symmetric_ce, l2_normalize
 from ..parallel import collectives as col
 from ..parallel.mesh import SINGLE, Mesh, RowShard, pad_to_multiple
 from ..utils.flat import FlatParams
+from ..utils.logging import counter_group, span
 from .buffer_io import load_buffer
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float64": torch.float64}
+
+#: :class:`ExpertCycler`'s counters: ``segments`` one per
+#: :meth:`~ExpertCycler.next_segment_device`, ``copy_ns`` the host's
+#: nanoseconds in its host->device copies (a miss's synchronous copy, a
+#: prefetch's pinning and the enqueuing of its copy); each
+#: ``cycler.segment`` span carries what they gained inside it
+CYCLER = counter_group("cycler", {"segments": 0, "copy_ns": 0})
 
 
 @dataclasses.dataclass
@@ -381,42 +390,52 @@ class Distiller:
         leaves = [t.detach().requires_grad_() for t in
                   (self._whole_syn(st.image_syn), self._whole_syn(st.text_syn),
                    st.syn_lr_img, st.syn_lr_txt)]
-        loss, aux = self.grand_loss(*leaves, img_th0, txt_th0, img_tgt,
-                                    txt_tgt, idx_seq, seeds)
-        return loss.detach(), aux, list(torch.autograd.grad(loss, leaves))
+        with span("distill.unroll"):
+            loss, aux = self.grand_loss(*leaves, img_th0, txt_th0, img_tgt,
+                                        txt_tgt, idx_seq, seeds)
+        with span("distill.meta_backward"):
+            grads = list(torch.autograd.grad(loss, leaves))
+        return loss.detach(), aux, grads
 
     def _outer_update(self, img_th0, txt_th0, img_tgt, txt_tgt, idx_seq,
                       seeds) -> Dict[str, torch.Tensor]:
-        cfg, st, mesh = self.cfg, self.state, self.mesh
-        loss, (img_loss, txt_loss), grads = self._meta_grads(
-            img_th0, txt_th0, img_tgt, txt_tgt, idx_seq, seeds)
-        g_img, g_txt, g_li, g_lt = grads
-        with torch.no_grad():
-            # each rank's meta-gradient holds its slots' rows: sum them
-            # (this rank's rows of the sum under --shard_syn); the LR
-            # gradients are whole on every rank already
-            reduce = (col.reduce_scatter_rows if self._shard_syn
-                      else col.all_reduce_sum)
-            g_img, g_txt = reduce(g_img, mesh), reduce(g_txt, mesh)
-            if cfg.text_only:
-                g_img, g_li = torch.zeros_like(g_img), torch.zeros_like(g_li)
-            if cfg.image_only:
-                g_txt, g_lt = torch.zeros_like(g_txt), torch.zeros_like(g_lt)
-            (u_img,), (m_img,) = self._sgd([g_img], [st.mom_img], cfg.lr_img)
-            (u_txt,), (m_txt,) = self._sgd([g_txt], [st.mom_txt], cfg.lr_txt)
-            (u_li, u_lt), m_lr = self._sgd([g_li, g_lt], list(st.mom_lr),
-                                           cfg.lr_lr)
-            self.state = DistillState(
-                image_syn=st.image_syn + u_img, text_syn=st.text_syn + u_txt,
-                syn_lr_img=st.syn_lr_img + u_li,
-                syn_lr_txt=st.syn_lr_txt + u_lt,
-                mom_img=m_img, mom_txt=m_txt, mom_lr=tuple(m_lr))
-        return {"grand_loss": loss, "img_param_loss": img_loss.detach(),
-                "txt_param_loss": txt_loss.detach(),
-                "syn_lr_img_grad": g_li, "syn_lr_txt_grad": g_lt,
-                "syn_lr_img_pre": st.syn_lr_img, "syn_lr_txt_pre": st.syn_lr_txt,
-                "syn_lr_img": self.state.syn_lr_img,
-                "syn_lr_txt": self.state.syn_lr_txt}
+        with span("distill.step"):
+            cfg, st, mesh = self.cfg, self.state, self.mesh
+            loss, (img_loss, txt_loss), grads = self._meta_grads(
+                img_th0, txt_th0, img_tgt, txt_tgt, idx_seq, seeds)
+            g_img, g_txt, g_li, g_lt = grads
+            with torch.no_grad():
+                # each rank's meta-gradient holds its slots' rows: sum them
+                # (this rank's rows of the sum under --shard_syn); the LR
+                # gradients are whole on every rank already
+                reduce = (col.reduce_scatter_rows if self._shard_syn
+                          else col.all_reduce_sum)
+                g_img, g_txt = reduce(g_img, mesh), reduce(g_txt, mesh)
+                if cfg.text_only:
+                    g_img = torch.zeros_like(g_img)
+                    g_li = torch.zeros_like(g_li)
+                if cfg.image_only:
+                    g_txt = torch.zeros_like(g_txt)
+                    g_lt = torch.zeros_like(g_lt)
+                (u_img,), (m_img,) = self._sgd([g_img], [st.mom_img],
+                                               cfg.lr_img)
+                (u_txt,), (m_txt,) = self._sgd([g_txt], [st.mom_txt],
+                                               cfg.lr_txt)
+                (u_li, u_lt), m_lr = self._sgd([g_li, g_lt], list(st.mom_lr),
+                                               cfg.lr_lr)
+                self.state = DistillState(
+                    image_syn=st.image_syn + u_img,
+                    text_syn=st.text_syn + u_txt,
+                    syn_lr_img=st.syn_lr_img + u_li,
+                    syn_lr_txt=st.syn_lr_txt + u_lt,
+                    mom_img=m_img, mom_txt=m_txt, mom_lr=tuple(m_lr))
+            return {"grand_loss": loss, "img_param_loss": img_loss.detach(),
+                    "txt_param_loss": txt_loss.detach(),
+                    "syn_lr_img_grad": g_li, "syn_lr_txt_grad": g_lt,
+                    "syn_lr_img_pre": st.syn_lr_img,
+                    "syn_lr_txt_pre": st.syn_lr_txt,
+                    "syn_lr_img": self.state.syn_lr_img,
+                    "syn_lr_txt": self.state.syn_lr_txt}
 
     def draw_seeds(self, n: int) -> List[Tuple[int, int]]:
         """(image, text) dropout seeds for ``n`` inner steps."""
@@ -608,13 +627,17 @@ class ExpertCycler:
                 img_traj[tgt], txt_traj[tgt], start)
 
     def _put(self, img: np.ndarray, txt: np.ndarray) -> tuple:
-        return tuple(torch.as_tensor(a, dtype=torch.float32,
-                                     device=self.device) for a in (img, txt))
+        t0 = time.perf_counter_ns()
+        out = tuple(torch.as_tensor(a, dtype=torch.float32,
+                                    device=self.device) for a in (img, txt))
+        CYCLER["copy_ns"] += time.perf_counter_ns() - t0
+        return out
 
     def _put_async(self, img: np.ndarray, txt: np.ndarray) -> tuple:
         """-> (device tensors, pinned host copies, copy event)."""
         if self.device.type != "cuda":
             return self._put(img, txt), (), None
+        t0 = time.perf_counter_ns()
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         hosts = tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
@@ -623,6 +646,7 @@ class ExpertCycler:
             devs = tuple(h.to(self.device, non_blocking=True) for h in hosts)
             event = torch.cuda.Event()
             event.record(self._stream)
+        CYCLER["copy_ns"] += time.perf_counter_ns() - t0
         return devs, hosts, event
 
     def _claim(self, pending: tuple) -> tuple:
@@ -638,25 +662,27 @@ class ExpertCycler:
     def next_segment_device(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
         """-> (img_traj, txt_traj, start) as float32 tensors on the device,
         for :meth:`Distiller.step_traj`; cached per (file, expert)."""
-        img_traj, txt_traj, start = self._advance()
-        key = self._last_key
-        if self._cache_cap <= 0:
-            return (*self._put(img_traj, txt_traj), start)
-        # a pending copy of another key has no consumer (the cursor moved
-        # without us, e.g. a checkpoint restore): drop it
-        for stale in [k for k in self._pending if k != key]:
-            self._pending.pop(stale)
-        hit = self._cache.get(key)
-        if hit is None:
-            pending = self._pending.pop(key, None)
-            hit = (self._claim(pending) if pending is not None
-                   else self._put(img_traj, txt_traj))
-            self._cache[key] = hit
-            while len(self._cache) > self._cache_cap:
-                victims = [k for k in self._cache if k != key]
-                self._cache.pop(victims[-1])
-        self._maybe_prefetch(key)
-        return hit[0], hit[1], start
+        with span("cycler.segment", CYCLER):
+            CYCLER["segments"] += 1
+            img_traj, txt_traj, start = self._advance()
+            key = self._last_key
+            if self._cache_cap <= 0:
+                return (*self._put(img_traj, txt_traj), start)
+            # a pending copy of another key has no consumer (the cursor
+            # moved without us, e.g. a checkpoint restore): drop it
+            for stale in [k for k in self._pending if k != key]:
+                self._pending.pop(stale)
+            hit = self._cache.get(key)
+            if hit is None:
+                pending = self._pending.pop(key, None)
+                hit = (self._claim(pending) if pending is not None
+                       else self._put(img_traj, txt_traj))
+                self._cache[key] = hit
+                while len(self._cache) > self._cache_cap:
+                    victims = [k for k in self._cache if k != key]
+                    self._cache.pop(victims[-1])
+            self._maybe_prefetch(key)
+            return hit[0], hit[1], start
 
     def _maybe_prefetch(self, current_key) -> None:
         """Start the copy of the trajectory the cursor now points at,

@@ -42,6 +42,7 @@ from ..ops.contrastive import FIXED_LOGIT_SCALE, contrastive_loss_and_acc
 from ..ops.randaugment_device import random_augment
 from ..parallel import collectives as col
 from ..parallel.mesh import SINGLE, Mesh, RowShard
+from ..utils.logging import span
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -203,15 +204,21 @@ class BiEncoderTrainer:
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One SGD step on (B, H, W, 3) images and (B, D) text features
         (arrays or tensors); -> (loss, acc) on the device."""
-        texts = torch.as_tensor(text_feats, dtype=torch.float32,
-                                device=self.device)
-        return self._step(self._loss(self._images(images), texts))
+        with span("expert.step"):
+            with span("expert.put"):
+                texts = torch.as_tensor(text_feats, dtype=torch.float32,
+                                        device=self.device)
+                images = self._put(images)
+            return self._step(self._loss(self._augment(images), texts))
 
-    def _images(self, images) -> torch.Tensor:
-        """The step's input images on the device (augmented and normalised
-        under ``device_augment``)."""
-        images = torch.as_tensor(images, dtype=torch.float32,
-                                 device=self.device)
+    def _put(self, images) -> torch.Tensor:
+        """The step's input images on the device, float32."""
+        return torch.as_tensor(images, dtype=torch.float32,
+                               device=self.device)
+
+    def _augment(self, images: torch.Tensor) -> torch.Tensor:
+        """The step's device images, augmented and normalised under
+        ``device_augment``."""
         if self.device_augment:
             images = random_augment(images, self._draws(len(images)))
             images = (images / 255.0 - self._mean) / self._std
@@ -396,8 +403,9 @@ class TrainableTextTrainer(BiEncoderTrainer):
         ids, mask = (torch.as_tensor(np.asarray(t), dtype=torch.long,
                                      device=self.device)
                      for t in (input_ids, attention_mask))
-        return self._step(self.model(self._images(images), ids, mask,
-                                     train=True, generator=self.generator))
+        images = self._augment(self._put(images))
+        return self._step(self.model(images, ids, mask, train=True,
+                                     generator=self.generator))
 
     def train_epoch_captions(self, loader, tokenize: Callable,
                              pad_to: int = 64) -> Tuple[float, float]:

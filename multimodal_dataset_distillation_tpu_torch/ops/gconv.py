@@ -62,6 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.env import env_bool
+from ..utils.logging import counter_group, reset_counters
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -81,11 +82,13 @@ _HEADER = _CSRC / "gconv_mma.cuh"
 #: ``gconv3x3_fwd``/``gconv3x3_wgrad`` are the generic route's kernels,
 #: ``*_tc`` the bfloat16 tensor-core ones, ``*_tf32`` the float32
 #: tensor-core ones (the forward's weight pre-pass and main kernel are one
-#: launch of its entry point), ``*_narrow`` the 8-channels-per-group ones
-LAUNCHES = {"gconv3x3_fwd": 0, "gconv3x3_wgrad": 0,
-            "gconv3x3_fwd_tc": 0, "gconv3x3_wgrad_tc": 0,
-            "gconv3x3_wgrad_tf32": 0, "gconv3x3_fwd_tf32": 0,
-            "gconv3x3_fwd_narrow": 0, "gconv3x3_wgrad_narrow": 0}
+#: launch of its entry point), ``*_narrow`` the 8-channels-per-group ones;
+#: the recorder's counter group ``launches`` (:mod:`..utils.logging`)
+LAUNCHES = counter_group("launches", {
+    "gconv3x3_fwd": 0, "gconv3x3_wgrad": 0,
+    "gconv3x3_fwd_tc": 0, "gconv3x3_wgrad_tc": 0,
+    "gconv3x3_wgrad_tf32": 0, "gconv3x3_fwd_tf32": 0,
+    "gconv3x3_fwd_narrow": 0, "gconv3x3_wgrad_narrow": 0})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132            # H100 SXM streaming multiprocessors
@@ -126,8 +129,7 @@ _libs: Optional[_Libs] = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_counters("launches")
 
 
 def configure(cfg) -> bool:

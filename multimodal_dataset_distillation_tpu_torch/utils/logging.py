@@ -1,21 +1,40 @@
-"""Run logging (JSONL, wandb when wanted), timestamps and a trace scope.
+"""Run logging (JSONL, wandb when wanted), timestamps, the program's
+spans and counters, and a trace scope.
 
 The port's own copy of ``multimodal_dataset_distillation_tpu/utils/
 logging.py``: :class:`RunLogger` writes every record to
 ``{log_dir}/{name}.jsonl`` (and to wandb when it is importable and not
-disabled, offline unless configured otherwise); :class:`SmoothedValue`
-and :class:`MetricLogger` track windowed metrics; :class:`Profiler` is a
+disabled, offline unless configured otherwise); :class:`Profiler` is a
 ``torch.profiler`` scope writing a Chrome trace, where the JAX package
 uses ``jax.profiler``.
+
+The recorder (:func:`span`, :func:`spans`, :func:`reset`,
+:func:`counter_group`, :func:`reset_counters`) is the port's own:
+
+* A span is a phase of the program (``distill.step``, ``distill.unroll``,
+  ``distill.meta_backward``, ``cycler.segment``, ``expert.step``,
+  ``expert.put``, ``data.batch``).  It records only while a
+  ``torch.profiler`` session is active in the process, on the profiler's
+  clock (``time.time_ns()``, which kineto stamps its host events with),
+  with the span open around it as its parent and, on a CUDA device, the
+  allocator's ``memory_allocated()`` at both ends, and, when it is given
+  a counter group, what that group gained inside it (``cycler.segment``
+  carries ``cycler``'s).  It adds no event to the profiler's own.  With
+  no session active a span costs one check.
+* A counter group is a dict of integers, always on, each event one add:
+  ``launches`` (:data:`..ops.gconv.LAUNCHES`) and ``cycler``
+  (:class:`..engine.distill.ExpertCycler`'s ``segments`` and
+  ``copy_ns``).  Only its own reset clears it.
 """
 
 from __future__ import annotations
 
-import collections
+import contextlib
+import itertools
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -125,80 +144,137 @@ class SilentLogger:
         pass
 
 
-class SmoothedValue:
-    """Windowed median / average tracker (utils.py:714-773 analog)."""
-
-    def __init__(self, window_size: int = 20,
-                 fmt: str = "{median:.4f} ({global_avg:.4f})"):
-        self.deque = collections.deque(maxlen=window_size)
-        self.total = 0.0
-        self.count = 0
-        self.fmt = fmt
-
-    def update(self, value: float, n: int = 1):
-        self.deque.append(value)
-        self.count += n
-        self.total += value * n
-
-    @property
-    def median(self) -> float:
-        return float(np.median(self.deque)) if self.deque else 0.0
-
-    @property
-    def avg(self) -> float:
-        return float(np.mean(self.deque)) if self.deque else 0.0
-
-    @property
-    def global_avg(self) -> float:
-        return self.total / max(self.count, 1)
-
-    @property
-    def value(self) -> float:
-        return self.deque[-1] if self.deque else 0.0
-
-    def __str__(self):
-        return self.fmt.format(median=self.median, avg=self.avg,
-                               global_avg=self.global_avg, value=self.value)
+class Span(NamedTuple):
+    """One recorded span: ``start_ns``/``end_ns`` from ``time.time_ns()``;
+    ``parent`` the id of the innermost span open at its start (None at the
+    top); ``mem0``/``mem1`` the CUDA allocator's bytes at its ends (None
+    when CUDA is not in use); ``counts`` what the span's counter group
+    gained over it (None when it was given none)."""
+    name: str
+    id: int
+    parent: Optional[int]
+    start_ns: int
+    end_ns: int
+    mem0: Optional[int]
+    mem1: Optional[int]
+    counts: Optional[Dict[str, int]] = None
 
 
-class MetricLogger:
-    """Iteration logger (utils.py:623-710 analog): one ``SmoothedValue``
-    per metric name, printed every ``print_freq`` items by ``log_every``."""
+def _allocated() -> Optional[int]:
+    return (torch.cuda.memory_allocated() if torch.cuda.is_initialized()
+            else None)
 
-    def __init__(self, delimiter: str = "  "):
-        self.meters: Dict[str, SmoothedValue] = collections.defaultdict(
-            SmoothedValue)
-        self.delimiter = delimiter
 
-    def update(self, **kwargs):
-        for k, v in kwargs.items():
-            self.meters[k].update(float(v))
+_NO_SPAN = contextlib.nullcontext()
 
-    def __getattr__(self, attr):
-        if attr in self.meters:
-            return self.meters[attr]
-        raise AttributeError(attr)
 
-    def __str__(self):
-        return self.delimiter.join(f"{k}: {v}" for k, v in self.meters.items())
+class _OpenSpan:
+    __slots__ = ("rec", "name", "group", "id", "parent", "t0", "m0", "c0")
 
-    def log_every(self, iterable, print_freq: int, header: str = ""):
-        start = time.time()
-        iter_time = SmoothedValue(fmt="{avg:.4f}")
-        for i, obj in enumerate(iterable):
-            t0 = time.time()
-            yield obj
-            iter_time.update(time.time() - t0)
-            if i % print_freq == 0:
-                print(f"{header} [{i}]  {self}  time: {iter_time}")
-        total = time.time() - start
-        print(f"{header} Total time: {total:.1f}s")
+    def __init__(self, rec: "Recorder", name: str,
+                 group: Optional[Dict[str, int]]):
+        self.rec, self.name, self.group = rec, name, group
+
+    def __enter__(self):
+        rec = self.rec
+        self.id = next(rec._ids)
+        self.parent = rec._open[-1] if rec._open else None
+        rec._open.append(self.id)
+        self.m0 = _allocated()
+        self.c0 = None if self.group is None else dict(self.group)
+        self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        rec = self.rec
+        rec._open.pop()
+        counts = (None if self.group is None else
+                  {k: v - self.c0.get(k, 0) for k, v in self.group.items()})
+        rec._spans.append(Span(self.name, self.id, self.parent, self.t0, t1,
+                               self.m0, _allocated(), counts))
+        return False
+
+
+class Recorder:
+    """The program's spans (while a profiler is active) and counter
+    groups (always).  Spans are opened on one thread: the one that runs
+    the steps."""
+
+    def __init__(self):
+        self._spans: List[Span] = []
+        self._open: List[int] = []     # ids of the open spans, innermost last
+        self._ids = itertools.count()
+        self.counters: Dict[str, Dict[str, int]] = {}
+
+    def span(self, name: str, group: Optional[Dict[str, int]] = None):
+        """A context manager recording ``name`` (and what the counter group
+        ``group`` gains inside it) while a ``torch.profiler`` session is
+        active; a shared no-op otherwise."""
+        if not torch.autograd._profiler_enabled():
+            return _NO_SPAN
+        return _OpenSpan(self, name, group)
+
+    def spans(self, name: Optional[str] = None) -> List[Span]:
+        """The recorded spans (of ``name``) in the order they started."""
+        out = sorted(self._spans, key=lambda s: s.id)
+        return out if name is None else [s for s in out if s.name == name]
+
+    def reset(self) -> None:
+        """Forget the recorded spans; the counters stay."""
+        self._spans = []
+
+    def counter_group(self, group: str, counts: Dict[str, int]
+                      ) -> Dict[str, int]:
+        """Register ``counts`` (a dict the caller keeps and adds to) as the
+        counter group ``group``; -> that same dict."""
+        self.counters[group] = counts
+        return counts
+
+    def reset_counters(self, group: str) -> None:
+        counts = self.counters[group]
+        for k in counts:
+            counts[k] = 0
+
+
+#: the process's recorder
+RECORDER = Recorder()
+span = RECORDER.span
+spans = RECORDER.spans
+reset = RECORDER.reset
+counter_group = RECORDER.counter_group
+reset_counters = RECORDER.reset_counters
+#: the tid of the spans' row in an exported trace
+SPAN_TID = 0
+
+
+def _trace_events(recorded: List[Span], base_ns: int, pid: int
+                  ) -> List[dict]:
+    """Chrome-trace complete events of ``recorded`` on one row of ``pid``,
+    ``ts``/``dur`` in microseconds from ``base_ns`` (the trace's
+    ``baseTimeNanoseconds``)."""
+    row = {"pid": pid, "tid": SPAN_TID}
+    out = [{"ph": "M", "name": "thread_name", **row,
+            "args": {"name": "program spans"}},
+           {"ph": "M", "name": "thread_sort_index", **row,
+            "args": {"sort_index": -1}}]
+    for s in recorded:
+        args = {"id": s.id, "parent": s.parent}
+        if s.mem0 is not None:
+            args.update(mem0=s.mem0, mem1=s.mem1)
+        if s.counts is not None:
+            args.update(s.counts)
+        out.append({"ph": "X", "cat": "program_span", "name": s.name, **row,
+                    "ts": (s.start_ns - base_ns) / 1e3,
+                    "dur": (s.end_ns - s.start_ns) / 1e3, "args": args})
+    return out
 
 
 class Profiler:
     """``torch.profiler`` over a scope (host ops, and the card's kernels
     when one is present); writes ``{profile_dir}/trace.json`` (Chrome
-    trace format) on exit.  A no-op scope when ``profile_dir`` is empty."""
+    trace format) on exit, with the program's spans of the scope on a row
+    of their own.  A no-op scope when ``profile_dir`` is empty."""
 
     def __init__(self, profile_dir: Optional[str]):
         self.dir = profile_dir
@@ -209,6 +285,7 @@ class Profiler:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
+            reset()
             self._prof = torch.profiler.profile(activities=acts)
             self._prof.__enter__()
         return self
@@ -217,8 +294,15 @@ class Profiler:
         if self._prof is not None:
             self._prof.__exit__(*exc)
             os.makedirs(self.dir, exist_ok=True)
-            self._prof.export_chrome_trace(os.path.join(self.dir,
-                                                        "trace.json"))
+            path = os.path.join(self.dir, "trace.json")
+            self._prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+            trace["traceEvents"] += _trace_events(
+                spans(), int(trace.get("baseTimeNanoseconds", 0)),
+                os.getpid())
+            with open(path, "w") as f:
+                json.dump(trace, f)
             self._prof = None
         return False
 

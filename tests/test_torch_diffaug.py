@@ -1,6 +1,6 @@
-"""The port's DSA suite, legacy augment, LR schedules and metric logger
-against the JAX package's (``ops/diffaug.py``, ``ops/legacy_augment.py``,
-``utils/schedules.py``, ``utils/logging.py``), mirroring
+"""The port's DSA suite, legacy augment and LR schedules against the JAX
+package's (``ops/diffaug.py``, ``ops/legacy_augment.py``,
+``utils/schedules.py``), mirroring
 ``tests/test_diffaug.py``.
 
 JAX's random draws cannot be made by torch, so each port op is fed the
@@ -10,10 +10,6 @@ at 1e-5.  The host-side legacy augment draws from numpy and is held
 exactly on the same seed.
 """
 
-import contextlib
-import io
-import re
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,11 +18,9 @@ import torch
 
 from multimodal_dataset_distillation_tpu.ops import diffaug as jdiffaug
 from multimodal_dataset_distillation_tpu.ops import legacy_augment as jlegacy
-from multimodal_dataset_distillation_tpu.utils import logging as jlogging
 from multimodal_dataset_distillation_tpu.utils import schedules as jsched
 from multimodal_dataset_distillation_tpu_torch.ops import diffaug
 from multimodal_dataset_distillation_tpu_torch.ops import legacy_augment
-from multimodal_dataset_distillation_tpu_torch.utils import logging as plogging
 from multimodal_dataset_distillation_tpu_torch.utils import schedules
 from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
@@ -186,34 +180,3 @@ def test_schedules_match_jax():
         assert (schedules.step_lr_schedule(e, 1.0, 0.01, 0.5)
                 == jsched.step_lr_schedule(e, 1.0, 0.01, 0.5))
     assert schedules.warmup_lr_schedule(3, 0, 0.0, 1.0) == 1.0
-
-
-def _drop_times(text):
-    return [re.sub(r"time: [0-9.]+", "time:", line) for line in
-            text.splitlines() if "Total time" not in line]
-
-
-def test_metric_logger_matches_jax():
-    vals = np.random.RandomState(6).rand(30, 2)
-    outs, texts = [], []
-    for mod in (plogging, jlogging):
-        ml = mod.MetricLogger(delimiter=" | ")
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            seen = [i for i in ml.log_every(range(30), 7, header="it")
-                    if ml.update(loss=vals[i, 0], acc=vals[i, 1]) is None]
-        assert seen == list(range(30))
-        outs.append((str(ml), ml.loss.median, ml.loss.avg,
-                     ml.acc.global_avg, ml.acc.value, ml.acc.count))
-        texts.append(_drop_times(buf.getvalue()))
-        with pytest.raises(AttributeError):
-            ml.nothing
-    assert outs[0] == outs[1]
-    assert texts[0] == texts[1] and len(texts[0]) == 5
-    for mod in (plogging, jlogging):
-        sv = mod.SmoothedValue(window_size=3, fmt="{value:.2f} {avg:.3f}")
-        for v in (1.0, 2.0, 4.0, 8.0):
-            sv.update(v, n=2)
-        outs.append((str(sv), sv.median, sv.global_avg, sv.count))
-    assert outs[2] == outs[3]
-    assert str(plogging.SmoothedValue()) == str(jlogging.SmoothedValue())

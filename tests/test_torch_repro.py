@@ -13,7 +13,13 @@ the trajectory walk under ``--load_all``, on the CPU.
 * ``ExpertCycler`` with and without ``load_all`` walks the same (file,
   expert, start) sequence and serves the same segments, over several
   reshuffles of the files.
+* ``tools/torch_eval_repro.py`` (the card's repro of the above) runs to
+  its end at its toy shape and finds the toy eval block bit-identical.
 """
+
+import importlib.util
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -202,3 +208,17 @@ def test_cycler_load_all_walks_the_same(tmp_path, n_files):
         lazy.close()
         resident.close()
     assert len(orders) > 1   # the walk went through reshuffles
+
+
+def test_the_eval_repro_tool_runs_at_its_toy_shape(tmp_path):
+    path = Path(__file__).resolve().parents[1] / "tools" / "torch_eval_repro.py"
+    spec = importlib.util.spec_from_file_location("torch_eval_repro", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = tmp_path / "repro.jsonl"
+    assert tool.main(["--shape", "toy", "--reps", "2", "--out",
+                      str(out)]) == 0
+    got = json.loads(out.read_text())
+    assert got["block"]["bit_identical"] and got["block"]["metrics_equal"]
+    assert got["grads"]["params"] > 0 and got["grads"]["differ"] == []
+    assert got["grads"]["forward_equal"] and got["scores"]["equal"]

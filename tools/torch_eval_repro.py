@@ -182,7 +182,7 @@ def grad_spread(cfg, model, variables, images, texts, reps: int) -> dict:
                                lr_txt=cfg.lr_net, momentum=0.9,
                                weight_decay=5e-4, seed=cfg.seed)
     n = cfg.batch_train
-    x = trainer._images(images[:n])
+    x = trainer._augment(trainer._put(images[:n]))
     t = torch.as_tensor(texts[:n], device=trainer.device)
     owner = {}
     for mname, mod in model.named_modules():
